@@ -1,0 +1,646 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's resident TPC-H path on one NVIDIA card.
+
+    python3 chip_smoke.py [--out DIR]
+
+Three phases, each of which raises on a failed check (exit code != 0):
+
+1. Set-up: print the card's name and power limit, build the four CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
+2. Kernels: run each kernel against its plain PyTorch version on the card
+   at the shapes the TPC-H SF1 path gives it (one canonical chunk of
+   750,000 tuples).  Each kernel gets two times: its own __global__
+   launches alone (``ms``, from the profiler's kernel rows) and its wrapper
+   as the main path calls it (``wrapper_ms``, CUDA events around whole
+   calls, set-up included); the plain version is timed with CUDA events.
+   Each kernel's bound is bytes over 3.35 TB/s or operations over
+   67 TFLOP/s float32, whichever is larger.
+3. Path: generate the SF1 tables on the card, reset the kernels' launch
+   counters, run Q1/Q3/Q6/Q18/Q20 in all four modes (plus Q6 with
+   ``num_freq=4096`` and Q18 ``method="exact"``) through the port's entry
+   points, read the counters, and check bit-equal reruns,
+   kernel-independent cross-checks and, at a small size, the card against
+   the CPU's plain versions.  Then time every query once more.
+
+The line before the last is the card's name and power limit; a JSON line
+of per-kernel numbers comes before it; the last line is the fixed result
+JSON.  Details (all numbers, the ptxas report of the build) go to
+``DIR/chip_smoke.json`` and ``DIR/build.log``, by default under
+``build/chip_smoke`` of the checkout.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SF1 = dict(n_orders=1_500_000, lines_per_order=4, n_parts=200_000,
+           n_suppliers=1_000, n_customers=150_000, n_nations=25, seed=0)
+CHUNK = 750_000               # tuples of one canonical chunk at SF1
+Q3_GROUPS = 262_144
+Q18_GROUPS = 1_500_000
+Q18_EXACT_OPTS = dict(cf_budget_elems=1 << 28)
+#: minimum launches of each kernel in one run of the main path.
+MIN_LAUNCHES = {"group_cumulant_sums": 16, "cumulant_sums": 8, "logcf": 8,
+                "group_logcf": 24}
+#: what each kernel replaces on the TPU.
+REPLACES = {
+    "logcf": "src/repro/kernels/pb_cf.py:41",
+    "group_logcf": "src/repro/kernels/group_cf.py:67",
+    "cumulant_sums": "src/repro/kernels/cumulants.py:31",
+    "group_cumulant_sums": "src/repro/kernels/group_cumulants.py:57",
+}
+SOURCES = {
+    "logcf": "src/repro_torch/kernels/csrc/logcf.cu",
+    "group_logcf": "src/repro_torch/kernels/csrc/group_logcf.cu",
+    "cumulant_sums": "src/repro_torch/kernels/csrc/cumulants.cu",
+    "group_cumulant_sums": "src/repro_torch/kernels/csrc/group_cumulants.cu",
+}
+#: the __global__ functions each kernel's C entry launches, and how many
+#: launches one wrapper call makes (csrc/*.cu).
+GLOBALS = {
+    "logcf": (("logcf_partial", "rows_sum"), 3),
+    "group_logcf": (("group_logcf_partial", "segment_rows_sum"), 3),
+    "cumulant_sums": (("cumulants_partial", "rows_sum"), 2),
+    "group_cumulant_sums": (("group_cumulants_partial", "segment_rows_sum"),
+                            2),
+}
+#: float ops per (frequency, tuple) pair of a CF term: phase scale, q,
+#: re (FMA = 2), im, |.|^2 (3), clamp, log, 0.5*, atan2, sin, cos and the
+#: two accumulating adds; a transcendental counts as one op, so the bound
+#: is a lower bound.
+CF_OPS_PER_PAIR = 16
+
+
+def cumulant_ops_per_tuple(orders: int) -> int:
+    """Horner (orders x orders FMAs), v^j and the product (2 * orders
+    multiplies) and the accumulating adds."""
+    return 2 * orders * orders + 3 * orders - 1
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` launches after one
+    warm-up call (CUDA events around the whole run)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(name: str, fn, reps: int) -> tuple:
+    """Device ms per call of ``fn`` spent in kernel ``name``'s own
+    __global__ launches, from the profiler's kernel rows: the wrapper's
+    set-up (casts, sorts, the piece table and its host sync) is left out.
+    Returns (ms, launches seen, launches expected)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    names, per_call = GLOBALS[name]
+    pattern = re.compile(r"(?<!\w)(" + "|".join(names) + r")(?!\w)")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and pattern.search(e.key):
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            seen += e.count
+    check(seen > 0, f"{name}: the profiler saw none of {names}")
+    return us / 1e3 / reps, seen, reps * per_call
+
+
+def timings(name: str, fn, reps: int) -> dict:
+    """The kernel's own device ms (``ms``) and the wrapper's ms as the
+    main path calls it (``wrapper_ms``, CUDA events around whole calls)."""
+    ms, seen, expected = kernel_ms(name, fn, reps)
+    return dict(ms=ms, wrapper_ms=cuda_ms(fn, reps),
+                profiled_launches=seen, expected_launches=expected)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def wrapped_angle_err(got, want):
+    import torch
+    d = (got.double() - want.double() + torch.pi) % (2 * torch.pi) - torch.pi
+    return d.abs()
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ----------------------------------------------------------------- kernels
+def kernel_phase(dev, rng) -> dict:
+    """Each kernel against its plain version at the SF1 path's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.approx import _bernoulli_cumulant_polys
+    from repro_torch.kernels import (cumulants, group_cf, group_cumulants,
+                                     pb_cf, ref)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    def probs(n, live):
+        """Q-shaped masked probabilities: a share `live` of rows alive."""
+        p = rng.uniform(0.0, 1.0, n)
+        return put(np.where(rng.uniform(0, 1, n) < live, p, 0.0),
+                   torch.float32)
+
+    rows = {}
+
+    # 1. logcf at Q6's shape: N = 4096, one chunk of 750,000 tuples.  The
+    # plain (N, n) tile does not fit, so the timed launch is held against
+    # the plain terms on two frequency windows at full n (terms as the
+    # plain version computes them, summed in float64); the plain version
+    # is timed on a tuple prefix.
+    n, nf, prefix, win = CHUNK, 4096, 65_536, 128
+    p = probs(n, 0.05)
+    v = put(rng.integers(0, 162, n), torch.int64)
+    run = lambda: pb_cf.logcf(p, v, num_freq=nf)
+    t = timings("logcf", run, 10)
+    la, an = run()
+    err_la, err_an, rel = 0.0, 0.0, 0.0
+    for lo in (0, nf - win):
+        k = lo + torch.arange(win, dtype=torch.float64, device=dev)
+        tl, ta = ref._cf_terms(p[None, :], v[None, :], k[:, None], nf)
+        e_la = (la[lo:lo + win] - tl.double().sum(-1)).abs()
+        e_an = wrapped_angle_err(an[lo:lo + win], ta.double().sum(-1))
+        err_la = max(err_la, float(e_la.max()))
+        err_an = max(err_an, float(e_an.max()))
+        rel = max(rel,
+                  float((e_la / tl.double().abs().sum(-1).clamp(min=1)).max()),
+                  float((e_an / ta.double().abs().sum(-1).clamp(min=1)).max()))
+        del tl, ta
+    plain_ms = cuda_ms(lambda: pb_cf.logcf_plain(p[:prefix], v[:prefix], nf),
+                       3)
+    ms_prefix = kernel_ms("logcf", lambda: pb_cf.logcf(
+        p[:prefix], v[:prefix], num_freq=nf), 10)[0]
+    b = bound_ms(n * (4 + 8) + 2 * nf * 4, n * nf * CF_OPS_PER_PAIR)
+    print(f"logcf: n={n} N={nf} kernel {t['ms']:.4f} ms, wrapper "
+          f"{t['wrapper_ms']:.4f} ms; vs plain on frequencies [0,{win}) and "
+          f"[{nf - win},{nf}) at full n: max err {err_la:.3e} (log-abs) "
+          f"{err_an:.3e} (angle mod 2pi), max err / sum|term| {rel:.3e} "
+          f"(tolerance 2e-5); on the prefix n={prefix}: kernel "
+          f"{ms_prefix:.4f} ms vs plain {plain_ms:.4f} ms")
+    check(rel <= 2e-5, f"logcf disagrees with its plain version: {rel}")
+    # Phase exactness at N = 2^20 with values up to N - 1.
+    n2, nf2 = 256, 1 << 20
+    p2 = put(rng.uniform(0.01, 0.99, n2), torch.float32)
+    v2 = put(np.concatenate([[nf2 - 1, nf2 - 2, 1], rng.integers(
+        0, nf2, n2 - 3)]), torch.int64)
+    la2, an2 = pb_cf.logcf(p2, v2, num_freq=nf2)
+    pl2, pa2 = pb_cf.logcf_plain(p2, v2, nf2)
+    e2 = max(float((la2 - pl2).abs().max()),
+             float(wrapped_angle_err(an2, pa2).max()))
+    print(f"logcf phase exactness: n={n2} N=2^20 max err {e2:.3e} "
+          "(tolerance 2e-3)")
+    check(e2 <= 2e-3, f"logcf phase at N=2^20: {e2}")
+    rows["logcf"] = dict(
+        max_abs_err=max(err_la, err_an, e2), **t, plain_ms=plain_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None, shape=f"n={n} N={nf}",
+        compare_shape=(f"n={n} N={nf} frequencies [0,{win}) and "
+                       f"[{nf - win},{nf}); n={n2} N=2^20"),
+        plain_shape=f"n={prefix} N={nf}", prefix_ms=ms_prefix,
+        max_err_over_sum_abs=rel)
+    del p, v, la, an
+
+    # 2. group_logcf at Q18's shape: 187,500 orders x 4 rows per chunk,
+    # G = 1.5M, N = 256, the middle frequency slab [89, 178).
+    n, G, nf, lo, cnt = CHUNK, Q18_GROUPS, 256, 89, 89
+    p = probs(n, 1.0)
+    v = put(rng.integers(1, 51, n), torch.int64)
+    # chunk 2 of the canonical grid: orders [375000, 562500)
+    g = put(np.repeat(np.arange(n // 4) + min(2 * (n // 4), G - n // 4), 4),
+            torch.int64)
+    ops_ = group_cf.presort_operands(p, v, g, nf)
+    run = lambda: group_cf.group_logcf(p, v, g, num_groups=G, num_freq=nf,
+                                       freq_lo=lo, freq_cnt=cnt,
+                                       operands=ops_)
+    t = timings("group_logcf", run, 10)      # operands hoisted, as the path
+    la, an = run()
+    kk = lo + torch.arange(cnt, dtype=torch.float64, device=dev)
+    tl, ta = ref._cf_terms(p[:, None], v[:, None], kk[None, :], nf)
+    want_la = ref.segment_sum(tl, g, G)
+    want_an = ref.segment_sum(ta, g, G)
+    sc_la = ref.segment_sum(tl.abs(), g, G).clamp(min=1)
+    sc_an = ref.segment_sum(ta.abs(), g, G).clamp(min=1)
+    err_la = (la - want_la).abs()
+    err_an = wrapped_angle_err(an, want_an)
+    rel = max(float((err_la / sc_la).max()), float((err_an / sc_an).max()))
+    del tl, ta, want_la, want_an, sc_la, sc_an
+    plain_ms = cuda_ms(lambda: group_cf.group_logcf_plain(
+        p, v, g, G, nf, lo, cnt), 3)
+    b = bound_ms(n * 16 + 2 * G * cnt * 4, n * cnt * CF_OPS_PER_PAIR)
+    print(f"group_logcf: n={n} G={G} N={nf} window=[{lo},{lo + cnt}) "
+          f"kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms vs "
+          f"plain {plain_ms:.4f} ms; max err {float(err_la.max()):.3e} / "
+          f"{float(err_an.max()):.3e}, max err / sum|term| {rel:.3e} "
+          "(tolerance 2e-5)")
+    check(rel <= 2e-5, f"group_logcf disagrees with its plain version: {rel}")
+    rows["group_logcf"] = dict(
+        max_abs_err=max(float(err_la.max()), float(err_an.max())), **t,
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+        shape=f"n={n} G={G} N={nf} cnt={cnt}", max_err_over_sum_abs=rel)
+    del p, v, g, ops_, la, an
+
+    # 3./4. cumulants: Q6's scalar rider and Q3's / Q1's grouped riders,
+    # orders = 8; tolerance against the absolute-coefficient scale
+    # sum_i sum_d |c_jd| p^d |v|^j (the kernels are conditioning-limited).
+    orders = 8
+    table = torch.as_tensor(np.abs(_bernoulli_cumulant_polys()[
+        1:orders + 1, :orders + 1]), dtype=torch.float64, device=dev)
+
+    def scale_of(p, v, g, G):
+        pw = p.double()[None, :] ** torch.arange(orders + 1, device=dev,
+                                                 dtype=torch.float64)[:, None]
+        vp = v.double().abs()[None, :] ** torch.arange(
+            1, orders + 1, device=dev, dtype=torch.float64)[:, None]
+        rows_ = ((table @ pw) * vp).T
+        return rows_.sum(0) if g is None else ref.segment_sum(rows_, g, G)
+
+    n = CHUNK
+    p = probs(n, 0.05)
+    v = put(rng.integers(0, 162, n), torch.float32)
+    t = timings("cumulant_sums",
+                lambda: cumulants.cumulant_sums(p, v, orders=orders), 20)
+    got = cumulants.cumulant_sums(p, v, orders=orders)
+    want = cumulants.cumulant_sums_plain(p, v, orders)
+    rel = float(((got.double() - want.double()).abs()
+                 / scale_of(p, v, None, 1).clamp(min=1)).max())
+    plain_ms = cuda_ms(lambda: cumulants.cumulant_sums_plain(p, v, orders),
+                       10)
+    b = bound_ms(n * 8 + orders * 4, n * cumulant_ops_per_tuple(orders))
+    print(f"cumulant_sums: n={n} orders={orders} kernel {t['ms']:.4f} ms, "
+          f"wrapper {t['wrapper_ms']:.4f} ms vs plain {plain_ms:.4f} ms; "
+          f"max err / scale {rel:.3e} (tolerance 1e-5)")
+    check(rel <= 1e-5, f"cumulant_sums disagrees with its plain version: "
+          f"{rel}")
+    rows["cumulant_sums"] = dict(
+        max_abs_err=float((got - want).abs().max()), **t,
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+        shape=f"n={n} orders={orders}", max_err_over_scale=rel)
+
+    for label, G, live, vmax in (("Q1", 8, 0.6, 51), ("Q3", Q3_GROUPS, 0.05,
+                                                      10_000)):
+        p = probs(n, live)
+        v = put(rng.integers(1, vmax, n), torch.float32)
+        if G == 8:
+            g = put(rng.integers(0, 6, n), torch.int64)
+        else:   # consecutive orders of 4 rows; dead rows in the fill bucket
+            g = torch.arange(n, device=dev) // 4
+            g = torch.where(p > 0, g % (G - 1), torch.full_like(g, G - 1))
+        g = torch.where(p > 0, g, torch.full_like(g, G - 1))
+        # As the path calls it: no presorted operands (uda.accumulate hoists
+        # operands for SumCF only), so each call also sorts and gathers.
+        run = lambda: group_cumulants.group_cumulant_sums(
+            p, v, g, num_groups=G, orders=orders)
+        t = timings("group_cumulant_sums", run, 20)
+        got = run()
+        want = group_cumulants.group_cumulant_sums_plain(p, v, g, G, orders)
+        rel = float(((got.double() - want.double()).abs()
+                     / scale_of(p, v, g, G).clamp(min=1)).max())
+        plain_ms = cuda_ms(lambda: group_cumulants.group_cumulant_sums_plain(
+            p, v, g, G, orders), 10)
+        b = bound_ms(n * 12 + G * orders * 4,
+                     n * cumulant_ops_per_tuple(orders))
+        print(f"group_cumulant_sums ({label}): n={n} G={G} orders={orders} "
+              f"kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms; max err / scale {rel:.3e} "
+              "(tolerance 1e-5)")
+        check(rel <= 1e-5, f"group_cumulant_sums ({label}) disagrees: {rel}")
+        rows[f"group_cumulant_sums_{label}"] = dict(
+            max_abs_err=float((got - want).abs().max()), **t,
+            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, shape=f"n={n} G={G} orders={orders}",
+            max_err_over_scale=rel)
+    rows["group_cumulant_sums"] = rows.pop("group_cumulant_sums_Q3")
+    rows["group_cumulant_sums"]["q1_shape"] = rows.pop(
+        "group_cumulant_sums_Q1")
+    return rows
+
+
+# -------------------------------------------------------------------- path
+def run_queries(db, sf1: bool) -> dict:
+    """Every query in every mode, plus the exact-CF variants."""
+    from repro_torch.db import tpch
+    q3_groups = Q3_GROUPS if sf1 else 512
+    q18_groups = Q18_GROUPS if sf1 else 2048
+    out = {}
+    for mode in tpch.MODES:
+        out[f"q1/{mode}"] = lambda m=mode: tpch.q1(db, m)
+        out[f"q3/{mode}"] = lambda m=mode: tpch.q3(db, m,
+                                                   max_groups=q3_groups)
+        out[f"q6/{mode}"] = lambda m=mode: tpch.q6(db, m)
+        out[f"q18/{mode}"] = lambda m=mode: tpch.q18(
+            db, m, max_groups=2_097_152 if sf1 else 2048)
+        out[f"q20/{mode}"] = lambda m=mode: tpch.q20(
+            db, m, max_groups=131_072 if sf1 else 1024)
+    out["q6/aggregate_exact"] = lambda: tpch.q6(db, "aggregate",
+                                                num_freq=4096)
+    out["q18/aggregate_exact"] = lambda: tpch.q18(
+        db, "aggregate", method="exact", max_groups=q18_groups,
+        num_freq=256, plan_opts=Q18_EXACT_OPTS if sf1 else None)
+    return out
+
+
+def leaves(x, path=""):
+    import torch
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from leaves(x[k], f"{path}.{k}")
+    elif isinstance(x, tuple):
+        for i, y in enumerate(x):
+            yield from leaves(y, f"{path}[{i}]")
+    else:
+        yield path, torch.as_tensor(x)
+
+
+def check_finite(name, result) -> None:
+    import torch
+    for path, t in leaves(result):
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"{name}{path} not finite")
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+    for (pa, x), (pb, y) in zip(leaves(a), leaves(b)):
+        if pa != pb or x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.is_floating_point():
+            if not torch.equal(x.view(torch.int32 if x.dtype == torch.float32
+                                      else torch.int64),
+                               y.view(torch.int32 if y.dtype == torch.float32
+                                      else torch.int64)):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    return True
+
+
+def cross_checks(res) -> None:
+    """Checks that need no kernel: kappa_1 = p and kappa_2 = p(1-p), so a
+    GroupAgg's cumulant columns 0 and 1 are its Normal (mu, var); a valid
+    exact-CF row sums to 1 and its mean is the Normal mean of the group."""
+    import torch
+
+    def close(a, b, what, rtol=2e-5):
+        a, b = a.double(), b.double()
+        err = float(((a - b).abs() / b.abs().clamp(min=1)).max())
+        print(f"cross-check {what}: max rel err {err:.3e} (tolerance {rtol})")
+        check(err <= rtol, f"{what}: {err}")
+
+    q1 = res["q1/aggregate"]
+    v = q1["valid"]
+    close(q1["cumulants_qty"][v, 0], q1["qty"][0][v], "Q1 kappa1 = mu")
+    close(q1["cumulants_qty"][v, 1], q1["qty"][1][v], "Q1 kappa2 = var")
+    q3 = res["q3/aggregate"]
+    v = q3["valid"]
+    close(q3["cumulants"][v, 0], q3["revenue"][0][v], "Q3 kappa1 = mu")
+    close(q3["cumulants"][v, 1], q3["revenue"][1][v], "Q3 kappa2 = var")
+    q6 = res["q6/aggregate"]
+    close(q6["cumulants"][0:1], q6["normal"][0][None], "Q6 kappa1 = mu")
+    close(q6["cumulants"][1:2], q6["normal"][1][None], "Q6 kappa2 = var")
+    ex = res["q18/aggregate_exact"]
+    v = ex["valid"]
+    rows = ex["sum_dist"][v].double()
+    mass = float((rows.sum(-1) - 1.0).abs().max())
+    print(f"cross-check Q18 exact rows sum to 1: max |sum - 1| {mass:.3e} "
+          "(tolerance 1e-3)")
+    check(mass <= 1e-3, f"Q18 exact row mass {mass}")
+    mean = rows @ torch.arange(rows.shape[1], device=rows.device,
+                               dtype=torch.float64)
+    normal_mu = res["q18/aggregate"]["sum_qty"][0][:v.shape[0]][v].double()
+    err = float(((mean - normal_mu).abs() / normal_mu.clamp(min=1)).max())
+    print(f"cross-check Q18 exact mean = Normal mean: max rel err {err:.3e} "
+          "(tolerance 1e-3)")
+    check(err <= 1e-3, f"Q18 exact mean {err}")
+
+
+def compare_small(cpu, gpu) -> dict:
+    """Card against CPU at a small size: integer and boolean leaves equal,
+    float leaves within 2e-4 of the leaf's largest magnitude (per order
+    for cumulant sums, whose columns scale as v^j).
+
+    Cumulant order j is conditioning-limited in float32: kappa_j's
+    coefficients sum to C_j in absolute value (1, 2, 6, 26, 150, ...,
+    9.5e4 at j = 8), so its sums cancel by up to that factor.  Orders
+    j <= 4 are held to 2e-4 * C_j of the column scale; higher orders are
+    reported, and the kernels' accuracy there is held in the kernel phase
+    against the absolute-coefficient scale."""
+    import numpy as np
+    import torch
+    from repro_torch.core.approx import _bernoulli_cumulant_polys
+    c_abs = torch.as_tensor(np.abs(_bernoulli_cumulant_polys()).sum(1)[1:],
+                            dtype=torch.float64)
+    worst, worst_high = 0.0, 0.0
+    for name in cpu:
+        for (pa, a), (pb, b) in zip(leaves(cpu[name]), leaves(gpu[name])):
+            check(pa == pb and a.shape == b.shape, f"{name}{pa} shape")
+            b = b.cpu()
+            if not a.is_floating_point():
+                check(torch.equal(a, b), f"{name}{pa} differs CPU vs card")
+                continue
+            if not a.numel():
+                continue
+            a64, b64 = a.double(), b.double()
+            if "cumulants" in pa:       # per order: columns differ by v^j
+                a64, b64 = (x.reshape(-1, a.shape[-1]) for x in (a64, b64))
+                orders = a.shape[-1]
+                rel = ((a64 - b64).abs()
+                       / a64.abs().amax(0).clamp(min=1e-6) / c_abs[:orders])
+                worst_high = max(worst_high, float(rel[:, 4:].max())
+                                 if orders > 4 else 0.0)
+                rel = rel[:, :4]
+            else:
+                rel = (a64 - b64).abs() / a64.abs().max().clamp(min=1e-6)
+            err = float(rel.max())
+            check(err <= 2e-4, f"{name}{pa}: CPU vs card {err}")
+            worst = max(worst, err)
+    return dict(max_rel=worst, cumulant_orders_above_4_rel=worst_high)
+
+
+def profile_query(name: str, fn) -> dict:
+    """Device time by kernel name for one run of a query, and the device's
+    busy share of the run's wall time (torch.profiler over CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        # Device-side events only: a CPU op's entry repeats the device
+        # time of the kernels it launched.
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile {name}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); top kernels: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, top_kernels=top)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card on this host", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.db import tpch
+        from repro_torch.kernels import build, ops
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "chip_smoke"
+    if "--out" in sys.argv:
+        out_dir = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {}
+    card = card_line()
+    print(f"card: {card}")
+    dev = torch.device("cuda")
+    report["card"] = card
+    report["device"] = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.library()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"build: {report['build_s']:.1f} s -> {lib}")
+    (out_dir / "build.log").write_text((lib.parent / "build.log").read_text())
+
+    rng = np.random.default_rng(0)
+    rows = kernel_phase(dev, rng)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    db = tpch.generate(**SF1, device="cuda")
+    torch.cuda.synchronize()
+    report["generate_s"] = time.perf_counter() - t0
+    print(f"SF1 tables on the card: lineitem {db.lineitem.capacity} rows, "
+          f"partsupp {db.partsupp.capacity} rows, "
+          f"{report['generate_s']:.1f} s")
+    queries = run_queries(db, sf1=True)
+
+    # The main path: counters at 0, every query once, counters read.
+    ops.reset_launches()
+    res = {}
+    for name, fn in queries.items():
+        res[name] = fn()
+        check_finite(name, res[name])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    print(f"main-path launches: {launches}")
+    for k, m in MIN_LAUNCHES.items():
+        check(launches[k] >= m, f"{k} launched {launches[k]} < {m} times")
+    report["launches"] = launches
+
+    for name in ("q1/aggregate", "q3/aggregate", "q6/aggregate",
+                 "q18/aggregate", "q20/aggregate", "q6/aggregate_exact",
+                 "q18/aggregate_exact"):
+        check(bit_equal(res[name], queries[name]()),
+              f"{name}: rerun is not bit-equal")
+    print("bit-equal reruns: ok")
+    cross_checks(res)
+
+    times = {}
+    for name, fn in queries.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        print(f"SF1 {name}: {times[name]:.1f} ms")
+    report["query_ms"] = times
+    report["profiles"] = {name: profile_query(name, queries[name])
+                          for name in ("q1/aggregate", "q3/aggregate",
+                                       "q6/aggregate_exact",
+                                       "q18/aggregate_exact")}
+    del res, db
+    torch.cuda.empty_cache()
+
+    small = dict(n_orders=2000, seed=0)
+    cpu = {k: f() for k, f in run_queries(tpch.generate(**small,
+                                                        device="cpu"),
+                                          sf1=False).items()}
+    gpu = {k: f() for k, f in run_queries(tpch.generate(**small,
+                                                        device="cuda"),
+                                          sf1=False).items()}
+    small_cmp = compare_small(cpu, gpu)
+    report["small_cpu_vs_card"] = small_cmp
+    print("small size (n_orders=2000) CPU plain vs card kernels: max err / "
+          f"scale {small_cmp['max_rel']:.3e} (tolerance 2e-4; cumulant "
+          "orders 1-4 scaled by their coefficient sums); cumulant orders "
+          f"5-8: {small_cmp['cumulant_orders_above_4_rel']:.3e} (reported)")
+
+    kernels = []
+    for name in ("logcf", "group_logcf", "cumulant_sums",
+                 "group_cumulant_sums"):
+        r = rows[name]
+        kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
+                            replaces=REPLACES[name],
+                            launches=launches[name], **r))
+    report["kernels"] = kernels
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Numeric and device configuration of the port.
+
+``default_float()`` is float32 unless ``enable_x64()`` was called, as in the
+JAX package with x64 off; float32 is also the only dtype the CUDA kernels
+take.  ``resolve_device`` turns an entry point's ``device=`` into a
+``torch.device``: the card is the default, and asking for it on a host
+without one raises instead of falling back to the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+_X64 = {"on": False}
+
+
+def enable_x64() -> None:
+    """Make float64 the port's default float (tables, UDA states)."""
+    _X64["on"] = True
+
+
+def x64_enabled() -> bool:
+    return _X64["on"]
+
+
+def default_float() -> torch.dtype:
+    return torch.float64 if _X64["on"] else torch.float32
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point allocates on; raises when it asks for a
+    CUDA card that this host does not have."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA card is available; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    return dev

@@ -1,0 +1,499 @@
+"""Grouped segment-UDA subsystem (port of ``repro.core.uda``): the one
+implementation of every probabilistic aggregate on the slice's path, as
+Glade's Initialize / Accumulate / Merge / Finalize (paper §VI-A):
+
+    init(max_groups, dtype, device) -> state, tensors leading with (G, ...)
+    update(state, p, v, g)          -> state   (one tuple block)
+    merge(a, b)                     -> state   (elementwise add)
+    finalize(state)                 -> per-group results
+
+Registered here: ``AtLeastOne`` (P(group non-empty)), ``SumNormal``
+((mean, variance) terms), ``SumCumulants`` (sum v^j kappa_j(p)) and
+``SumCF`` (exact SUM/COUNT log characteristic function).
+
+:func:`accumulate` is the canonical loop: eligible CF / cumulant
+accumulations go to the kernels of :mod:`repro_torch.kernels` under the
+dispatch guards of ``kernels/ops.py`` (on a CUDA tensor the CUDA kernel,
+on a CPU tensor its plain version), and every other UDA runs a blocked
+Python loop over tuple blocks with the JAX package's block sizing.
+:func:`accumulate_chunked` folds per-canonical-chunk states in the one
+fixed :func:`tree_fold` tree.  Every reduction runs in a fixed order, so a
+chunk's state is the same bits on every run.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .approx import MAX_ORDER, _bernoulli_cumulant_polys
+from .config import default_float
+
+# The canonical tiling constants: bound the block loop's working set to
+# ~2^23 elements so the (block, F) phase tile stays bounded regardless of
+# distribution width; the floor of 64 keeps even num_freq ~ 2^20 tiles
+# within budget.
+_BLOCK_FLOOR = 64
+_ELEM_BUDGET = 1 << 23
+
+
+def _tiny(dtype) -> float:
+    """Log-underflow guard."""
+    return 1e-30 if dtype == torch.float32 else 1e-300
+
+
+def _index_add(acc, ids, data):
+    """acc with data's rows added at ids (a new tensor), in a fixed order
+    on every device: ``index_add`` runs under PyTorch's deterministic mode
+    (its CUDA float kernel otherwise adds with atomics in run-dependent
+    order)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return acc.index_add(0, ids, data)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def segment_sum(data, ids, num_segments: int):
+    """Rows of ``data`` summed per segment id, deterministically."""
+    return _index_add(torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                                  dtype=data.dtype, device=data.device),
+                      ids, data)
+
+
+def _scatter_add(acc, g, contrib):
+    """acc[g] += contrib with the G == 1 (scalar) fast path."""
+    if acc.shape[0] == 1:
+        return acc + torch.sum(contrib, dim=0, keepdim=True)
+    return _index_add(acc, g, contrib)
+
+
+def _merge_fields(a, b):
+    return type(a)(*(x + y for x, y in zip(a, b)))
+
+
+# ======================================================================
+# protocol
+# ======================================================================
+class UDA:
+    """Base grouped UDA: additive merge, per-row working-set width 1."""
+
+    def init(self, max_groups: int, dtype=None, device="cpu"):
+        raise NotImplementedError
+
+    def update(self, state, probs, values, gids):
+        """Fold one block of (already masked) tuples into the state."""
+        raise NotImplementedError
+
+    def merge(self, a, b):
+        return _merge_fields(a, b)
+
+    def finalize(self, state):
+        raise NotImplementedError
+
+    def row_budget(self) -> int:
+        return 1
+
+
+# ======================================================================
+# AtLeastOne — group confidence (§VI row V)
+# ======================================================================
+class AtLeastOneState(NamedTuple):
+    log_none: torch.Tensor       # (G,) sum log(1-p) over accumulated tuples
+
+
+class AtLeastOne(UDA):
+    """P(at least one tuple present) per group: 1 - prod(1 - p)."""
+
+    def init(self, max_groups, dtype=None, device="cpu"):
+        return AtLeastOneState(torch.zeros(
+            (max_groups,), dtype=dtype or default_float(), device=device))
+
+    def update(self, state, probs, values, gids):
+        return AtLeastOneState(
+            _scatter_add(state.log_none, gids, torch.log1p(-probs)))
+
+    def finalize(self, state):
+        return 1.0 - torch.exp(state.log_none)
+
+
+# ======================================================================
+# SumNormal — (mean, variance) terms (§V-C.3, with the variance erratum fix)
+# ======================================================================
+class NormalState(NamedTuple):
+    terms: torch.Tensor          # (G, 2) = (sum v p, sum v^2 p (1-p))
+
+
+class SumNormal(UDA):
+    def init(self, max_groups, dtype=None, device="cpu"):
+        return NormalState(torch.zeros(
+            (max_groups, 2), dtype=dtype or default_float(), device=device))
+
+    def update(self, state, probs, values, gids):
+        mu_t = values * probs
+        var_t = values * values * probs * (1.0 - probs)
+        return NormalState(_scatter_add(state.terms, gids,
+                                        torch.stack([mu_t, var_t], dim=-1)))
+
+    def finalize(self, state):
+        return state.terms[:, 0], state.terms[:, 1]
+
+
+# ======================================================================
+# SumCumulants — moment terms for the Lindsay gamma mixture (§V-C.3)
+# ======================================================================
+class CumulantState(NamedTuple):
+    terms: torch.Tensor          # (G, orders) partial cumulant sums
+
+
+class SumCumulants(UDA):
+    """s_j[g] = sum_{i in g} v_i^j kappa_j(p_i), j = 1..orders."""
+
+    def __init__(self, orders: int = 8):
+        if not 1 <= orders <= MAX_ORDER:
+            raise ValueError(f"orders must be in [1, {MAX_ORDER}]")
+        self.orders = int(orders)
+
+    def init(self, max_groups, dtype=None, device="cpu"):
+        return CumulantState(torch.zeros(
+            (max_groups, self.orders), dtype=dtype or default_float(),
+            device=device))
+
+    def update(self, state, probs, values, gids):
+        dtype, dev = probs.dtype, probs.device
+        table = torch.as_tensor(
+            np.asarray(_bernoulli_cumulant_polys()[1:self.orders + 1,
+                                                   :self.orders + 1]),
+            dtype=dtype, device=dev)
+        powers = probs[None, :] ** torch.arange(
+            self.orders + 1, dtype=dtype, device=dev)[:, None]
+        kappas = table @ powers                         # (orders, B)
+        vpow = values[None, :] ** torch.arange(
+            1, self.orders + 1, dtype=dtype, device=dev)[:, None]
+        return CumulantState(_scatter_add(state.terms, gids,
+                                          (kappas * vpow).T))
+
+    def accumulate_full(self, state, probs, values, gids, max_groups,
+                        operands=None):
+        """Whole-column accumulate through the scalar (max_groups == 1) or
+        grouped cumulant kernel."""
+        from ..kernels import cumulants, group_cumulants
+        if max_groups == 1:
+            sums = cumulants.cumulant_sums(probs, values, orders=self.orders)
+            return CumulantState(state.terms + sums[None])
+        if gids is None:
+            gids = torch.zeros(probs.shape, dtype=torch.int64,
+                               device=probs.device)
+        sums = group_cumulants.group_cumulant_sums(
+            probs, values, gids, num_groups=max_groups, orders=self.orders,
+            operands=operands)
+        return CumulantState(state.terms + sums)
+
+    def finalize(self, state):
+        return state.terms
+
+    def row_budget(self) -> int:
+        return self.orders + 1
+
+
+# ======================================================================
+# SumCF — exact SUM/COUNT via the log characteristic function (§V-A/C)
+# ======================================================================
+class CFState(NamedTuple):
+    log_abs: torch.Tensor        # (G, F_loc)
+    angle: torch.Tensor          # (G, F_loc)
+
+
+class SumCF(UDA):
+    """log Q(w^k) = sum_i log((1-p_i) + p_i w^{k v_i}), w = e^{2 pi i / N}.
+
+    ``num_freq`` (= max_sum + 1) is the static distribution capacity;
+    ``freq_cnt`` frequencies starting at ``freq_lo`` are accumulated (the
+    planner's frequency slabs)."""
+
+    def __init__(self, num_freq: int, freq_lo: int = 0,
+                 freq_cnt: int | None = None):
+        self.num_freq = int(num_freq)
+        self.freq_lo = int(freq_lo)
+        self.freq_cnt = (int(freq_cnt) if freq_cnt is not None
+                         else self.num_freq)
+
+    def init(self, max_groups, dtype=None, device="cpu"):
+        shape = (max_groups, self.freq_cnt)
+        dtype = dtype or default_float()
+        return CFState(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+    def accumulate_full(self, state, probs, values, gids, max_groups,
+                        operands=None):
+        """Whole-column accumulate through the scalar or grouped CF kernel;
+        requires integer-valued ``values``."""
+        from ..kernels import group_cf, pb_cf
+        if max_groups == 1 and self.freq_lo == 0 \
+                and self.freq_cnt == self.num_freq:
+            la, an = pb_cf.logcf(probs, values, num_freq=self.num_freq)
+            return CFState(state.log_abs + la[None], state.angle + an[None])
+        if gids is None:
+            gids = torch.zeros(probs.shape, dtype=torch.int64,
+                               device=probs.device)
+        la, an = group_cf.group_logcf(probs, values, gids,
+                                      num_groups=max_groups,
+                                      num_freq=self.num_freq,
+                                      freq_lo=self.freq_lo,
+                                      freq_cnt=self.freq_cnt,
+                                      operands=operands)
+        return CFState(state.log_abs + la, state.angle + an)
+
+    def update(self, state, probs, values, gids):
+        dtype = probs.dtype
+        k = self.freq_lo + torch.arange(self.freq_cnt, dtype=dtype,
+                                        device=probs.device)
+        # (B, F_loc) phase tile; mod num_freq keeps theta exact at large k*v.
+        phase = torch.remainder(values[:, None] * k[None, :], self.num_freq)
+        theta = (2.0 * math.pi / self.num_freq) * phase
+        q = 1.0 - probs[:, None]
+        re = q + probs[:, None] * torch.cos(theta)
+        im = probs[:, None] * torch.sin(theta)
+        la = 0.5 * torch.log(torch.clamp(re * re + im * im, min=_tiny(dtype)))
+        an = torch.atan2(im, re)
+        return CFState(_scatter_add(state.log_abs, gids, la),
+                       _scatter_add(state.angle, gids, an))
+
+    def finalize(self, state):
+        """(G, F) summed log CF -> (G, F) coefficient rows, one batched FFT."""
+        mag = torch.exp(state.log_abs)
+        q = torch.complex(mag * torch.cos(state.angle),
+                          mag * torch.sin(state.angle))
+        coeffs = torch.fft.fft(q, dim=-1).real / state.log_abs.shape[-1]
+        return torch.clamp(coeffs, min=0.0)
+
+    def row_budget(self) -> int:
+        return self.freq_cnt
+
+
+# ======================================================================
+# the canonical accumulation loop
+# ======================================================================
+def _block_size(udas, block: int, n: int) -> int:
+    budget = max([1] + [u.row_budget() for u in udas.values()])
+    bsz = max(_BLOCK_FLOOR, min(block, _ELEM_BUDGET // max(1, budget)))
+    # Never pad past the column: a short column runs as one right-sized
+    # block; the floor keeps bsz positive for empty columns.
+    return min(bsz, max(_BLOCK_FLOOR, -(-n // _BLOCK_FLOOR) * _BLOCK_FLOOR))
+
+
+def _integral(t) -> bool:
+    """Does this source column carry exact integers (CF-kernel-eligible)?"""
+    return not (t.is_floating_point() or t.is_complex())
+
+
+def _kernel_eligible(u: UDA, probs, values_integral: bool) -> bool:
+    """CF / cumulant accumulations go to the kernels under the guards of
+    kernels/ops.py alone (f32, enough tuples; for CF integer values and a
+    frequency grid within the exact phase) — on any device."""
+    from ..kernels import ops as kops
+    if isinstance(u, SumCF):
+        return kops.cf_eligible(probs, u.num_freq, values_integral)
+    return isinstance(u, SumCumulants) and kops.cumulant_eligible(probs)
+
+
+def _pad(x, pad: int, value=0):
+    if not pad:
+        return x
+    return torch.cat([x, x.new_full((pad,), value)])
+
+
+def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
+               states=None, block: int = 8192, cf_operands=None):
+    """Accumulate every UDA in ``udas`` ({name: UDA}) over one column of
+    tuples.
+
+    probs:   (n,) tuple probabilities, already masked (invalid rows p = 0).
+    values:  (n,) tensor shared by all UDAs, or {name: (n,) tensor}; None
+             means all-ones (COUNT).
+    gids:    (n,) int group ids in [0, max_groups); None = all group 0.
+    states:  optional prior states to continue from (default: init).
+    cf_operands: optional {name: operands} pre-sorted grouped-CF kernel
+             columns (see :func:`cf_chunk_operands`).
+
+    Returns {name: state}.
+    """
+    dtype, dev = probs.dtype, probs.device
+    n = probs.shape[0]
+    gids_full = (torch.zeros((n,), dtype=torch.int64, device=dev)
+                 if gids is None else gids)
+    if not isinstance(values, dict):
+        values = {name: values for name in udas}
+    # One cast per distinct source column (keyed on the caller's object);
+    # the pre-cast source rides along for the CF kernels, which take
+    # integer columns directly.
+    ones = None
+    casts: dict = {}
+    val_arrays, val_index, val_integral, val_sources = [], {}, [], []
+    for name in udas:
+        v = values.get(name)
+        if v is None:
+            if ones is None:
+                ones = torch.ones((n,), dtype=dtype, device=dev)
+            v = src = ones
+            integral = True        # COUNT: all-ones
+        else:
+            if id(v) not in casts:
+                casts[id(v)] = (v.to(dtype), _integral(v), v)
+            v, integral, src = casts[id(v)]
+        for i, existing in enumerate(val_arrays):
+            if existing is v:
+                val_index[name] = i
+                break
+        else:
+            val_index[name] = len(val_arrays)
+            val_arrays.append(v)
+            val_integral.append(integral)
+            val_sources.append(src)
+
+    states = dict(states or {})
+    for name, u in udas.items():
+        if name not in states:
+            states[name] = u.init(max_groups, dtype, dev)
+
+    scan_udas = {}
+    for name, u in udas.items():
+        i = val_index[name]
+        if _kernel_eligible(u, probs, val_integral[i]):
+            # CF kernels take the pre-cast (integer) source; the cumulant
+            # kernels compute float value powers and take the cast column.
+            vals = val_sources[i] if isinstance(u, SumCF) else val_arrays[i]
+            states[name] = u.accumulate_full(
+                states[name], probs, vals,
+                None if max_groups == 1 else gids_full, max_groups,
+                operands=cf_operands.get(name) if cf_operands else None)
+        else:
+            scan_udas[name] = u
+    if not scan_udas:
+        return states
+
+    bsz = _block_size(scan_udas, block, n)
+    pad = -(-n // bsz) * bsz - n
+    p = _pad(probs, pad).view(-1, bsz)           # p = 0: no contribution
+    g = _pad(gids_full, pad, max_groups - 1).view(-1, bsz)
+    vs = [_pad(v, pad).view(-1, bsz) for v in val_arrays]
+    for b in range(p.shape[0]):
+        for name, u in scan_udas.items():
+            states[name] = u.update(states[name], p[b],
+                                    vs[val_index[name]][b], g[b])
+    return states
+
+
+def tree_fold(u: UDA, parts):
+    """Fold partial states with ``u.merge`` in the one canonical tree
+    shape: a balanced pairwise tree over the largest power-of-two prefix,
+    then a sequential left fold of the tail leaves.  The tree depends only
+    on the leaf count."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("tree_fold needs at least one partial state")
+    base_len = 1 << (len(parts).bit_length() - 1)   # largest pow2 <= len
+    base, tail = parts[:base_len], parts[base_len:]
+    while len(base) > 1:
+        base = [u.merge(base[i], base[i + 1])
+                for i in range(0, len(base), 2)]
+    out = base[0]
+    for t in tail:
+        out = u.merge(out, t)
+    return out
+
+
+def accumulate_chunk_states(udas, probs, values=None, gids=None, *,
+                            max_groups: int = 1, num_chunks: int = 8,
+                            block: int = 8192, cf_operands=None) -> list:
+    """Per-canonical-chunk partial states: the column is split into
+    ``num_chunks`` contiguous equal chunks (zero-padded with p = 0 rows to
+    a chunk multiple) and each chunk runs :func:`accumulate` alone.
+    ``cf_operands``: optional {name: [per-chunk operands]}."""
+    n = probs.shape[0]
+    csz = -(-n // num_chunks)
+    pad = csz * num_chunks - n
+    probs = _pad(probs, pad)
+    if gids is not None:
+        gids = _pad(gids, pad, max_groups - 1)
+    if not isinstance(values, dict):
+        values = {name: values for name in udas}
+    # Pad each distinct source column once so aggregates sharing a column
+    # keep sharing it (accumulate dedups value columns by identity).
+    cols: dict = {}
+    cache: dict = {}
+    for name in udas:
+        v = values.get(name)
+        if v is None:
+            cols[name] = None
+            continue
+        if id(v) not in cache:
+            cache[id(v)] = _pad(v, pad)
+        cols[name] = cache[id(v)]
+    parts = []
+    for i in range(num_chunks):
+        sl = slice(i * csz, (i + 1) * csz)
+        ccache: dict = {}
+        vals_i = {name: None if c is None else ccache.setdefault(id(c), c[sl])
+                  for name, c in cols.items()}
+        ops_i = ({name: per_chunk[i]
+                  for name, per_chunk in cf_operands.items()}
+                 if cf_operands else None)
+        parts.append(accumulate(udas, probs[sl], vals_i,
+                                None if gids is None else gids[sl],
+                                max_groups=max_groups, block=block,
+                                cf_operands=ops_i))
+    return parts
+
+
+def accumulate_chunked(udas, probs, values=None, gids=None, *,
+                       max_groups: int = 1, num_chunks: int = 8,
+                       block: int = 8192, cf_operands=None):
+    """Canonical chunk-grid Accumulate + :func:`tree_fold` Merge."""
+    if num_chunks <= 1:
+        ops_0 = ({name: per_chunk[0]
+                  for name, per_chunk in cf_operands.items()}
+                 if cf_operands else None)
+        return accumulate(udas, probs, values, gids, max_groups=max_groups,
+                          block=block, cf_operands=ops_0)
+    parts = accumulate_chunk_states(udas, probs, values, gids,
+                                    max_groups=max_groups,
+                                    num_chunks=num_chunks, block=block,
+                                    cf_operands=cf_operands)
+    return {name: tree_fold(u, [p[name] for p in parts])
+            for name, u in udas.items()}
+
+
+def cf_chunk_operands(num_freq: int, probs, values, gids, *,
+                      max_groups: int, num_chunks: int):
+    """Pre-sorted per-chunk grouped-CF kernel operands for an exact-CF
+    aggregation, or None when the kernel would not be dispatched.  The
+    planner calls this once per aggregation pass and threads the result
+    through every frequency slab, so the argsort runs once."""
+    from ..kernels import group_cf
+    n = probs.shape[0]
+    if n % num_chunks:
+        return None            # planner columns divide the grid exactly
+    csz = n // num_chunks
+    if values is None:
+        vals = torch.ones((n,), dtype=probs.dtype, device=probs.device)
+        integral = True        # COUNT: all-ones
+    else:
+        vals = values
+        integral = _integral(vals)
+    if not _kernel_eligible(SumCF(num_freq), probs[:csz], integral):
+        return None
+    g = (torch.zeros((n,), dtype=torch.int64, device=probs.device)
+         if gids is None else gids)
+    return [group_cf.presort_operands(probs[i * csz:(i + 1) * csz],
+                                      vals[i * csz:(i + 1) * csz],
+                                      g[i * csz:(i + 1) * csz], num_freq)
+            for i in range(num_chunks)]
+
+
+def finalize(udas, states):
+    return {name: u.finalize(states[name]) for name, u in udas.items()}

@@ -1,0 +1,177 @@
+"""Probabilistic relational operators (paper §IV-F / Table I; port of
+``repro.db.operators``), the part the resident TPC-H path runs.
+
+    I    R -> R^p                Table.from_columns(prob=...)
+    II   sigma_C (deterministic) `select`: valid &= C
+    III  sigma_{A theta B}       `reweight`: p *= P(theta)
+    IV   R join_C S              `fk_join` (many-to-one)
+    V    pi_A                    `project`: GROUP BY + AtLeastOne UDA
+
+Grouping uses a fixed ``max_groups``: live key codes are packed into one
+int64 code, the ``max_groups`` smallest distinct codes form the group
+table, and dead or overflowing rows land in the last (fill) bucket.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+
+from ..core import uda
+from .table import Table
+
+BIG = torch.iinfo(torch.int64).max
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+# --------------------------------------------------------------- grouping
+def check_nonneg_keys(table: Table, keys: Sequence[str]) -> None:
+    """Reject negative key values in valid rows: the positional packing
+    of :func:`encode_keys` assumes nonnegative keys."""
+    for k in keys:
+        if bool(torch.any(table.valid & (table[k] < 0))):
+            raise ValueError(
+                f"group key column {k!r} contains negative values in valid "
+                "rows; group-id codes assume nonnegative keys (the "
+                "positional packing of encode_keys) — shift or re-encode "
+                "the column first")
+
+
+def encode_keys(table: Table, keys: Sequence[str],
+                multipliers: Sequence[int] | None = None):
+    """Combine key columns into one sortable int64 code; multipliers[i]
+    must exceed the range of keys[i+1:] (default 2**20 each)."""
+    code = torch.zeros((table.capacity,), dtype=torch.int64,
+                       device=table.device)
+    for i, k in enumerate(keys):
+        m = multipliers[i] if multipliers else (1 << 20)
+        code = code * m + table[k].to(torch.int64)
+    return code
+
+
+def live_key_codes(table: Table, keys: Sequence[str]):
+    """Per-row key codes with dead rows pushed to the ``big`` sentinel.
+    Returns (code_live, big)."""
+    check_nonneg_keys(table, keys)
+    code = encode_keys(table, keys)
+    return torch.where(table.valid, code, torch.full_like(code, BIG)), BIG
+
+
+def merge_group_codes(codes, max_groups: int):
+    """The ``max_groups`` smallest distinct codes, padded with the
+    sentinel (``jnp.unique(size=max_groups, fill_value=big)``)."""
+    uniq = torch.unique(codes, sorted=True)[:max_groups]
+    if uniq.shape[0] < max_groups:
+        uniq = torch.cat([uniq, uniq.new_full(
+            (max_groups - uniq.shape[0],), BIG)])
+    return uniq
+
+
+def codes_to_ids(code_live, group_codes):
+    """Row codes -> group ids in [0, max_groups) against a merged code
+    table; dead rows go to the last (fill) bucket explicitly."""
+    last = group_codes.shape[0] - 1
+    ids = torch.clamp(torch.searchsorted(group_codes, code_live), 0, last)
+    return torch.where(code_live == BIG, torch.full_like(ids, last), ids)
+
+
+def group_ids(table: Table, keys: Sequence[str], max_groups: int):
+    """Assign each valid row a group id in [0, max_groups).  Returns
+    (ids, group_codes, group_valid)."""
+    code_live, big = live_key_codes(table, keys)
+    uniq = merge_group_codes(code_live, max_groups)
+    return codes_to_ids(code_live, uniq), uniq, uniq != big
+
+
+def group_key_columns(table: Table, keys: Sequence[str], ids,
+                      max_groups: int):
+    """Representative value of each key column per group: the segment max
+    over valid writers, with the max identity (integer min, -inf, False)
+    for rows that are invalid and for groups with no valid writer."""
+    check_nonneg_keys(table, keys)
+    out = {}
+    for k in keys:
+        col = table[k]
+        work = col.to(torch.uint8) if col.dtype == torch.bool else col
+        if work.is_floating_point():
+            ident = -math.inf
+        else:
+            ident = 0 if col.dtype == torch.bool else torch.iinfo(
+                work.dtype).min
+        src = torch.where(table.valid, work, torch.full_like(work, ident))
+        red = torch.full((max_groups,), ident, dtype=work.dtype,
+                         device=work.device)
+        red = red.scatter_reduce(0, ids, src, "amax", include_self=True)
+        out[k] = red.to(torch.bool) if col.dtype == torch.bool else red
+    return out
+
+
+# -------------------------------------------------------------- selection
+def select(table: Table, pred: Callable[[Table], torch.Tensor]) -> Table:
+    """sigma_C, deterministic condition (Table I row II)."""
+    return table.with_valid(table.valid & pred(table))
+
+
+def reweight(table: Table, p_cond) -> Table:
+    """sigma with probabilistic condition (Table I row III): p *= P(cond)."""
+    return table.with_prob(table.prob * p_cond)
+
+
+# -------------------------------------------------------------- projection
+def project(table: Table, keys: Sequence[str], max_groups: int) -> Table:
+    """pi_A (Table I row V): GROUP BY keys + AtLeastOne UDA."""
+    ids, _, gvalid = group_ids(table, keys, max_groups)
+    u = uda.AtLeastOne()
+    st = uda.accumulate({"a": u}, table.masked_prob(), None, ids,
+                        max_groups=max_groups)["a"]
+    cols = group_key_columns(table, keys, ids, max_groups)
+    return Table(cols, u.finalize(st), gvalid)
+
+
+# -------------------------------------------------------------------- joins
+def check_unique_fk_keys(right: Table, right_key: str) -> None:
+    """Reject duplicate valid build-side keys in :func:`fk_join` (a
+    duplicate would silently drop one world's probability mass)."""
+    live = right[right_key][right.valid]
+    if torch.unique(live).shape[0] != live.shape[0]:
+        raise ValueError(
+            f"fk_join build side has duplicate valid keys in {right_key!r}; "
+            "the many-to-one join contract needs the right key unique among "
+            "valid rows (deduplicate or Project the build side first)")
+
+
+def fk_join(left: Table, right: Table, left_key: str, right_key: str,
+            right_cols: Sequence[str], suffix: str = "") -> Table:
+    """Many-to-one equijoin (fact -> dimension), Table I row IV.
+
+    Output capacity = left capacity; p = p_l * p_r.  The lookup is a sort
+    of the int32 build keys plus searchsorted.  Dead output rows (a miss
+    or an invalid left row) carry p = 0 and zero-filled right columns."""
+    check_unique_fk_keys(right, right_key)
+    rk = torch.where(right.valid, right[right_key].to(torch.int32),
+                     torch.full((right.capacity,), _INT32_MAX,
+                                dtype=torch.int32, device=right.device))
+    order = torch.argsort(rk, stable=True)
+    rk_sorted = rk[order]
+    lk = left[left_key].to(torch.int32).contiguous()
+    pos = torch.clamp(torch.searchsorted(rk_sorted, lk), 0,
+                      right.capacity - 1)
+    src = order[pos]
+    valid = left.valid & (rk_sorted[pos] == lk)
+    cols = dict(left.columns)
+    for c in right_cols:
+        fetched = right[c][src]
+        cols[c + suffix] = torch.where(valid, fetched,
+                                       torch.zeros_like(fetched))
+    prob = torch.where(valid, left.prob * right.prob[src],
+                       torch.zeros_like(left.prob))
+    return Table(cols, prob, valid, left.part)
+
+
+# --------------------------------------------- scalar comparison epilogues
+def normal_greater(mu, var, threshold):
+    """P(N(mu, var) > threshold), vectorised over groups (§VII-D epilogue)."""
+    sigma = torch.sqrt(torch.clamp(var, min=1e-30))
+    z = (threshold - mu) / sigma
+    return 0.5 * torch.special.erfc(z / math.sqrt(2.0))

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at small shapes (the SF1 shapes are ``chip_smoke.py``'s).  Needs an
+NVIDIA card and no JAX; on the card run
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Elsewhere the test skips (decided inside its fixture)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.approx import _bernoulli_cumulant_polys
+from repro_torch.kernels import cumulants, group_cf, group_cumulants, pb_cf
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided inside the test: skip on a host without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _abs_scale(p, v, g, num_groups, orders=8):
+    """Per-group sum_i sum_d |c_jd| p_i^d |v_i|^j, at least 1."""
+    table = np.abs(_bernoulli_cumulant_polys()[1:orders + 1, :orders + 1])
+    table = torch.as_tensor(table, dtype=torch.float64, device=p.device)
+    powers = p.double()[None, :] ** torch.arange(
+        orders + 1, dtype=torch.float64, device=p.device)[:, None]
+    vpow = v.double().abs()[None, :] ** torch.arange(
+        1, orders + 1, dtype=torch.float64, device=p.device)[:, None]
+    rows = ((table @ powers) * vpow).T
+    if g is None:
+        g = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
+    out = torch.zeros((num_groups, orders), dtype=torch.float64,
+                      device=p.device).index_add_(0, g, rows)
+    return out.clamp(min=1).float()
+
+
+def _angle_err(got, want):
+    d = got.double().cpu() - want.double().cpu()
+    return float((torch.remainder(d + torch.pi, 2 * torch.pi)
+                  - torch.pi).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    """Each CUDA kernel against its plain version on the card, including
+    the phase at N = 2^20 with values up to N - 1."""
+    rng = np.random.default_rng(5)
+    dev = cuda_device
+    n = 5000
+    p = torch.tensor(rng.uniform(0.01, 0.99, n), dtype=torch.float32,
+                     device=dev)
+    v = torch.tensor(rng.integers(0, 50, n), device=dev)
+    g = torch.tensor(rng.integers(0, 37, n), device=dev)
+    for num_freq in (257, 1 << 20):
+        vv = v if num_freq < 1 << 20 else torch.tensor(
+            rng.integers(num_freq - 64, num_freq, n), device=dev)
+        got = pb_cf.logcf(p[:300], vv[:300], num_freq=num_freq)
+        want = pb_cf.logcf_plain(p[:300], vv[:300], num_freq)
+        torch.testing.assert_close(got[0], want[0], atol=2e-3, rtol=0)
+        assert _angle_err(got[1], want[1]) < 2e-3
+    got = group_cf.group_logcf(p, v, g, num_groups=40, num_freq=256,
+                               freq_lo=100, freq_cnt=90)
+    want = group_cf.group_logcf_plain(p, v, g, 40, 256, 100, 90)
+    torch.testing.assert_close(got[0], want[0], atol=1e-2, rtol=0)
+    assert _angle_err(got[1], want[1]) < 1e-2
+    # Cumulant sums are conditioning-limited in float32: bound the error by
+    # the absolute-coefficient scale sum_d |c_jd| p^d |v|^j (per group).
+    vf = v.float()
+    got = cumulants.cumulant_sums(p, vf, orders=8)
+    want = cumulants.cumulant_sums_plain(p, vf, 8)
+    assert ((got - want).abs() / _abs_scale(p, vf, None, 1)[0]).max() < 1e-5
+    got = group_cumulants.group_cumulant_sums(p, vf, g, num_groups=40)
+    want = group_cumulants.group_cumulant_sums_plain(p, vf, g, 40)
+    assert ((got - want).abs() / _abs_scale(p, vf, g, 40)).max() < 1e-5

@@ -1,0 +1,212 @@
+"""The port's four kernel modules on the CPU: each plain PyTorch version
+against the JAX package's Pallas kernel (interpret mode, as
+tests/test_kernels.py runs it) and against ``repro.kernels.ref``, with
+the bounds those tests use; the split-modmult operands, the piece table
+of the grouped kernels and the dispatch guards.  The CUDA kernels
+themselves run only on a card (tests/test_torch_cuda.py; ``chip_smoke.py``
+holds them against the plain versions at the SF1 shapes)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.approx import _bernoulli_cumulant_polys
+from repro.kernels import cumulants as jcum
+from repro.kernels import group_cf as jgcf
+from repro.kernels import group_cumulants as jgcum
+from repro.kernels import pb_cf as jcf
+from repro.kernels import ref as jref
+from repro_torch.kernels import cumulants, group_cf, group_cumulants, ops
+from repro_torch.kernels import pb_cf, ref, segments
+
+
+def _cf_inputs(rng, n, num_groups=1, vmax=50):
+    p = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    v = rng.integers(0, vmax, n).astype(np.int32)
+    g = rng.integers(0, num_groups, n).astype(np.int32)
+    return p, v, g
+
+
+def _assert_angles_close(got, want, atol):
+    """Angle sums compared modulo 2*pi (tests/test_group_cf.py:31)."""
+    d = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    wrapped = np.abs(np.mod(d + np.pi, 2 * np.pi) - np.pi)
+    np.testing.assert_array_less(wrapped, atol)
+
+
+def _assert_scale_aware_close(got, want, p, v, g, num_groups, orders,
+                              rtol=2e-6):
+    """Bound by the absolute-coefficient scale sum_d |c_jd| p^d |v|^j per
+    group (tests/test_group_cumulants.py:27)."""
+    tabs = np.abs(_bernoulli_cumulant_polys()[1:orders + 1]).astype(
+        np.float32)
+    powers = p[None, :].astype(np.float64) ** np.arange(tabs.shape[1])[:,
+                                                                       None]
+    vpow = np.abs(v[None, :].astype(np.float64)) ** np.arange(
+        1, orders + 1)[:, None]
+    rows = ((tabs @ powers) * vpow).T
+    scale = np.zeros((num_groups, orders))
+    np.add.at(scale, g, rows)
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    np.testing.assert_array_less(err, rtol * np.maximum(scale, 1.0))
+
+
+@pytest.mark.parametrize("n,num_freq", [(100, 129), (300, 257),
+                                        (1000, 1001)])
+def test_logcf_plain_matches_pallas(rng, n, num_freq):
+    p, v, _ = _cf_inputs(rng, n)
+    la_k, an_k = jcf.logcf(jnp.asarray(p), jnp.asarray(v),
+                           num_freq=num_freq, interpret=True)
+    la_r, an_r = jref.logcf_ref(jnp.asarray(p), jnp.asarray(v, jnp.float32),
+                                num_freq)
+    la, an = pb_cf.logcf(torch.from_numpy(p), torch.from_numpy(v),
+                         num_freq=num_freq)
+    tol = 5e-4 * max(1, n / 500)
+    for want in (la_k, la_r):
+        np.testing.assert_allclose(la.numpy(), np.asarray(want), atol=tol)
+    for want in (an_k, an_r):
+        _assert_angles_close(an.numpy(), want, tol)
+
+
+def test_logcf_plain_large_values(rng):
+    """k*a far beyond int32 exactness: the float64 phase must hold."""
+    n, num_freq = 500, 1 << 14
+    p = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    v = rng.integers(0, num_freq, n).astype(np.int32)
+    la_k, _ = jcf.logcf(jnp.asarray(p), jnp.asarray(v), num_freq=num_freq,
+                        interpret=True)
+    la, _ = pb_cf.logcf(torch.from_numpy(p), torch.from_numpy(v),
+                        num_freq=num_freq)
+    np.testing.assert_allclose(la.numpy(), np.asarray(la_k), atol=2e-3)
+
+
+@pytest.mark.parametrize("n,num_groups,num_freq,lo,cnt", [
+    (300, 5, 129, 0, None), (513, 9, 64, 0, None), (700, 12, 320, 128, 128),
+])
+def test_group_logcf_plain_matches_pallas(rng, n, num_groups, num_freq, lo,
+                                          cnt):
+    p, v, g = _cf_inputs(rng, n, num_groups)
+    la_k, an_k = jgcf.group_logcf(jnp.asarray(p), jnp.asarray(v),
+                                  jnp.asarray(g), num_groups=num_groups,
+                                  num_freq=num_freq, freq_lo=lo,
+                                  freq_cnt=cnt, interpret=True)
+    la_r, an_r = jref.group_logcf_ref(jnp.asarray(p), jnp.asarray(v),
+                                      jnp.asarray(g), num_groups, num_freq,
+                                      lo, cnt)
+    tp, tv, tg = map(torch.from_numpy, (p, v, g))
+    la, an = group_cf.group_logcf(tp, tv, tg, num_groups=num_groups,
+                                  num_freq=num_freq, freq_lo=lo,
+                                  freq_cnt=cnt)
+    # the presorted-operand route gives the same answer
+    ops_ = group_cf.presort_operands(tp, tv, tg, num_freq)
+    la_o, an_o = group_cf.group_logcf(tp, tv, tg, num_groups=num_groups,
+                                      num_freq=num_freq, freq_lo=lo,
+                                      freq_cnt=cnt, operands=ops_)
+    tol = 5e-4 * max(1, n / 500)
+    for got in (la, la_o):
+        for want in (la_k, la_r):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=tol)
+    for got in (an, an_o):
+        for want in (an_k, an_r):
+            _assert_angles_close(got.numpy(), want, 2e-3 * max(1, n / 500))
+
+
+@pytest.mark.parametrize("n,orders", [(1000, 4), (3000, 8)])
+def test_cumulants_plain_matches_pallas(rng, n, orders):
+    p = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    v = rng.uniform(0, 5, n).astype(np.float32)
+    sk = jcum.cumulant_sums(jnp.asarray(p), jnp.asarray(v), orders=orders,
+                            interpret=True)
+    sr = jref.cumulants_ref(jnp.asarray(p), jnp.asarray(v), orders)
+    got = cumulants.cumulant_sums(torch.from_numpy(p), torch.from_numpy(v),
+                                  orders=orders)
+    for want in (sk, sr):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=5e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,num_groups,orders", [(300, 5, 8), (1500, 200, 4),
+                                                 (1024, 16, 12)])
+def test_group_cumulants_plain_matches_pallas(rng, n, num_groups, orders):
+    p = rng.uniform(0.01, 0.99, n).astype(np.float32)
+    v = rng.uniform(0, 5, n).astype(np.float32)
+    g = rng.integers(0, num_groups, n).astype(np.int32)
+    sk = jgcum.group_cumulant_sums(jnp.asarray(p), jnp.asarray(v),
+                                   jnp.asarray(g), num_groups=num_groups,
+                                   orders=orders, interpret=True)
+    sr = jref.group_cumulants_ref(jnp.asarray(p), jnp.asarray(v),
+                                  jnp.asarray(g), num_groups, orders)
+    tp, tv, tg = map(torch.from_numpy, (p, v, g))
+    got = group_cumulants.group_cumulant_sums(tp, tv, tg,
+                                              num_groups=num_groups,
+                                              orders=orders)
+    got_o = group_cumulants.group_cumulant_sums(
+        tp, tv, tg, num_groups=num_groups, orders=orders,
+        operands=group_cumulants.presort_operands(tp, tv, tg))
+    assert got.shape == (num_groups, orders)
+    for out in (got, got_o):
+        for want in (sk, sr):
+            _assert_scale_aware_close(out.numpy(), want, p, v, g,
+                                      num_groups, orders)
+
+
+@pytest.mark.parametrize("num_freq", [1, 2, 257, 4096, 1 << 20])
+def test_split_modmult_operands_match_jax(rng, num_freq):
+    v = rng.integers(-3 * num_freq, 3 * num_freq, 400)
+    a, a2, shift = pb_cf.split_modmult_operands(torch.from_numpy(v),
+                                                num_freq)
+    ja, ja2, jshift = jcf.split_modmult_operands(jnp.asarray(v), num_freq)
+    assert shift == jshift == pb_cf.phase_shift(num_freq)
+    assert a.dtype == a2.dtype == torch.int32
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(a2.numpy(), np.asarray(ja2))
+    with pytest.raises(ValueError, match="2\\^20"):
+        pb_cf.split_modmult_operands(torch.from_numpy(v), (1 << 20) + 1)
+
+
+@pytest.mark.parametrize("sizes,max_len", [
+    ([0, 5, 0, 2048, 1, 1025, 0], 1024), ([3, 3, 3], 2), ([0, 0], 4),
+])
+def test_pieces_cover_each_group_in_order(sizes, max_len):
+    g = torch.from_numpy(np.repeat(np.arange(len(sizes)), sizes)
+                         .astype(np.int32))
+    start, end, first = segments.pieces(g, len(sizes), max_len)
+    assert first[0] == 0 and first[-1] == start.shape[0]
+    for gi, size in enumerate(sizes):
+        own = range(int(first[gi]), int(first[gi + 1]))
+        assert len(own) == -(-size // max_len)
+        covered = [i for r in own for i in range(int(start[r]),
+                                                 int(end[r]))]
+        lo = sum(sizes[:gi])
+        assert covered == list(range(lo, lo + size))
+        assert all(int(end[r]) - int(start[r]) <= max_len for r in own)
+
+
+def test_dispatch_guards():
+    """Eligibility comes from the guards alone: size, float32, frequency
+    grid and integer values; on a CPU tensor every wrapper then computes
+    its plain version and counts no launch."""
+    big = torch.rand(ops.MIN_KERNEL_TUPLES)
+    small = big[:-1]
+    assert ops.cumulant_eligible(big)
+    assert not ops.cumulant_eligible(small)
+    assert not ops.cumulant_eligible(big.double())
+    assert ops.cf_eligible(big, ops.MAX_KERNEL_FREQ, True)
+    assert not ops.cf_eligible(big, ops.MAX_KERNEL_FREQ + 1, True)
+    assert not ops.cf_eligible(big, 64, False)
+    ops.reset_launches()
+    v = torch.ones(big.shape[0], dtype=torch.int64)
+    g = torch.zeros_like(v)
+    la, _ = pb_cf.logcf(big, v, num_freq=64)
+    torch.testing.assert_close(la, ref.logcf_ref(big, v, 64)[0])
+    la, _ = group_cf.group_logcf(big, v, g, num_groups=2, num_freq=64)
+    torch.testing.assert_close(la, ref.group_logcf_ref(big, v, g, 2, 64)[0])
+    torch.testing.assert_close(
+        cumulants.cumulant_sums(big, v.float(), orders=3),
+        ref.cumulants_ref(big, v.float(), 3))
+    torch.testing.assert_close(
+        group_cumulants.group_cumulant_sums(big, v.float(), g, num_groups=2,
+                                            orders=3),
+        ref.group_cumulants_ref(big, v.float(), g, 2, 3))
+    assert all(n == 0 for n in ops.launches().values())
