@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's resident TPC-H path on one NVIDIA card.
+"""Drive the PyTorch port's resident TPC-H path and its value layer on one
+NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Three phases, each of which raises on a failed check (exit code != 0):
+Five phases, each of which raises on a failed check (exit code != 0):
 
-1. Set-up: print the card's name and power limit, build the four CUDA
+1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
 2. Kernels: run each kernel against its plain PyTorch version on the card
-   at the shapes the TPC-H SF1 path gives it (one canonical chunk of
-   750,000 tuples).  Each kernel gets two times: its own __global__
-   launches alone (``ms``, from the profiler's kernel rows) and its wrapper
-   as the main path calls it (``wrapper_ms``, CUDA events around whole
-   calls, set-up included); the plain version is timed with CUDA events.
-   Each kernel's bound is bytes over 3.35 TB/s or operations over
-   67 TFLOP/s float32, whichever is larger.
-3. Path: generate the SF1 tables on the card, reset the kernels' launch
-   counters, run Q1/Q3/Q6/Q18/Q20 in all four modes (plus Q6 with
+   at the shapes the two paths give it (one canonical chunk of 750,000
+   tuples of the TPC-H SF1 path; the polynomial products of the value
+   layer, and larger ones).  Each kernel gets two times: its own
+   __global__ launches alone (``ms``, from the profiler's kernel rows) and
+   its wrapper as the path calls it (``wrapper_ms``, CUDA events around
+   whole calls, set-up included); the plain version and, where one
+   PyTorch call computes the same function, that call (``library_ms``)
+   are timed with CUDA events.  Each kernel's bound is bytes over
+   3.35 TB/s or operations over 67 TFLOP/s float32, whichever is larger.
+3. TPC-H path: generate the SF1 tables on the card, reset the kernels'
+   launch counters, run Q1/Q3/Q6/Q18/Q20 in all four modes (plus Q6 with
    ``num_freq=4096`` and Q18 ``method="exact"``) through the port's entry
-   points, read the counters, and check bit-equal reruns,
-   kernel-independent cross-checks and, at a small size, the card against
-   the CPU's plain versions.  Then time every query once more.
+   points, read the counters, and check bit-equal reruns and
+   kernel-independent cross-checks.  Then time and profile the queries.
+4. Value-layer path, at the paper's sizes: exact COUNT of 10^8 tuples
+   (Fig. 9) in float32 and float64, its gamma-mixture and Normal fits
+   (Fig. 10), exact SUM over the SF1 lineitem, ``q18_topk`` at SF1 with
+   kappa 8 and 2, and two schoolbook products; one warm-up, then the
+   counters reset, every call timed, the counters read; moment, mass,
+   tail and bit-equal-rerun checks.
+5. Small size (n_orders=2000): both paths on the CPU's plain versions
+   against the card's kernels.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -50,18 +60,27 @@ Q18_EXACT_OPTS = dict(cf_budget_elems=1 << 28)
 #: minimum launches of each kernel in one run of the main path.
 MIN_LAUNCHES = {"group_cumulant_sums": 16, "cumulant_sums": 8, "logcf": 8,
                 "group_logcf": 24}
+#: launches of each kernel in one run of the value-layer path: logcf for
+#: the two 1,000-tuple and four 400-tuple COUNTs, cumulant_sums for the
+#: 10^8-tuple fit, polymul for the 1001 x 1001 and 401 x 801 products.
+VALUE_LAUNCHES = {"logcf": 6, "group_logcf": 0, "cumulant_sums": 1,
+                  "group_cumulant_sums": 0, "polymul": 2}
+FIG9_N = 100_000_000
+Q18_TOPK_GROUPS = 2_097_152
 #: what each kernel replaces on the TPU.
 REPLACES = {
     "logcf": "src/repro/kernels/pb_cf.py:41",
     "group_logcf": "src/repro/kernels/group_cf.py:67",
     "cumulant_sums": "src/repro/kernels/cumulants.py:31",
     "group_cumulant_sums": "src/repro/kernels/group_cumulants.py:57",
+    "polymul": "src/repro/kernels/polymul.py:34",
 }
 SOURCES = {
     "logcf": "src/repro_torch/kernels/csrc/logcf.cu",
     "group_logcf": "src/repro_torch/kernels/csrc/group_logcf.cu",
     "cumulant_sums": "src/repro_torch/kernels/csrc/cumulants.cu",
     "group_cumulant_sums": "src/repro_torch/kernels/csrc/group_cumulants.cu",
+    "polymul": "src/repro_torch/kernels/csrc/polymul.cu",
 }
 #: the __global__ functions each kernel's C entry launches, and how many
 #: launches one wrapper call makes (csrc/*.cu).
@@ -71,6 +90,7 @@ GLOBALS = {
     "cumulant_sums": (("cumulants_partial", "rows_sum"), 2),
     "group_cumulant_sums": (("group_cumulants_partial", "segment_rows_sum"),
                             2),
+    "polymul": (("polymul_tile",), 1),
 }
 #: float ops per (frequency, tuple) pair of a CF term: phase scale, q,
 #: re (FMA = 2), im, |.|^2 (3), clamp, log, 0.5*, atan2, sin, cos and the
@@ -353,7 +373,56 @@ def kernel_phase(dev, rng) -> dict:
     rows["group_cumulant_sums"] = rows.pop("group_cumulant_sums_Q3")
     rows["group_cumulant_sums"]["q1_shape"] = rows.pop(
         "group_cumulant_sums_Q1")
+    rows["polymul"] = polymul_rows(put, rng)
     return rows
+
+
+def polymul_rows(put, rng) -> dict:
+    """polymul at the value-layer path's shapes (1001 x 1001: two COUNT
+    PGFs of 1,000 tuples; 401 x 801: the first product of the grouped SUM)
+    and beyond mul_sum's window (1024 x 1024, 128 x 1024, 16,384 x 16,384),
+    beside conv1d (``library_ms``, TF32 off) and the port's
+    ``fft_convolve`` (``fft_ms``).  Held against the plain version in
+    float64 relative to the per-output scale sum_u |a_u||b_{t-u}| (the
+    inputs are nonnegative, so the scale is the product itself): float32
+    accumulation in increasing u over K terms errs by about
+    eps * sqrt(K) / 6, 1.3e-6 at K = 16,384, so the tolerance is 2e-5.
+    Two runs must give the same bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import pgf
+    from repro_torch.kernels import polymul
+    shapes = []
+    for na, nb in ((1001, 1001), (401, 801), (1024, 1024), (128, 1024),
+                   (16_384, 16_384)):
+        a = put(rng.uniform(0, 1, na), torch.float32)
+        b = put(rng.uniform(0, 1, nb), torch.float32)
+        run = lambda: polymul.polymul(a, b)
+        t = timings("polymul", run, 20)
+        got = run()
+        check(bit_equal(got, run()), f"polymul {na}x{nb}: rerun not bit-equal")
+        want = polymul.polymul_plain(a.double(), b.double())
+        err = (got.double() - want).abs()
+        rel = float((err / want.clamp(min=1e-300)).max())
+        reps = 2 if na * nb > 1 << 24 else 10
+        plain_ms = cuda_ms(lambda: polymul.polymul_plain(a, b), reps)
+        conv_ms = cuda_ms(lambda: F.conv1d(
+            a[None, None], b.flip(0)[None, None], padding=nb - 1), 20)
+        fft_ms = cuda_ms(lambda: pgf.fft_convolve(a, b), 20)
+        bd = bound_ms(4 * (2 * na + 2 * nb - 1), 2 * na * nb)
+        print(f"polymul {na}x{nb}: kernel {t['ms']:.4f} ms, wrapper "
+              f"{t['wrapper_ms']:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); "
+              f"plain {plain_ms:.4f} ms, conv1d {conv_ms:.4f} ms, "
+              f"fft_convolve {fft_ms:.4f} ms; max err / scale {rel:.3e} "
+              "(tolerance 2e-5); bit-equal rerun")
+        check(rel <= 2e-5, f"polymul {na}x{nb} disagrees with its plain "
+              f"version: {rel}")
+        shapes.append(dict(shape=f"{na}x{nb}", **t, plain_ms=plain_ms,
+                           library_ms=conv_ms, fft_ms=fft_ms, bound_ms=bd[0],
+                           bound_by=bd[1], max_abs_err=float(err.max()),
+                           max_err_over_scale=rel))
+    return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes),
+                shapes=shapes)
 
 
 # -------------------------------------------------------------------- path
@@ -454,6 +523,256 @@ def cross_checks(res) -> None:
     check(err <= 1e-3, f"Q18 exact mean {err}")
 
 
+# ------------------------------------------------------------- value layer
+def value_leaves(x):
+    """A value-layer result as a dict of tensors (PGFs, the host fits'
+    dataclasses, query dicts), for bit-equal and CPU-vs-card checks."""
+    import dataclasses
+    import torch
+    from repro_torch.core.pgf import PGF
+    if isinstance(x, PGF):
+        return dict(coeffs=x.coeffs, offset=torch.tensor(x.offset),
+                    p_pos_inf=torch.as_tensor(x.p_pos_inf,
+                                              dtype=torch.float64),
+                    p_neg_inf=torch.as_tensor(x.p_neg_inf,
+                                              dtype=torch.float64))
+    if dataclasses.is_dataclass(x):
+        return {k: torch.as_tensor(v, dtype=torch.float64)
+                for k, v in dataclasses.asdict(x).items()}
+    return x
+
+
+def float32_fft_tree(p):
+    """Exact COUNT by the JAX package's arithmetic: the product tree with
+    every level's FFTs in float32 (repro/core/pgf.py:236-275) — the port
+    runs them in float64.  Reported, not checked: it shows why."""
+    import torch
+    import torch.nn.functional as F
+    rows = torch.stack([1.0 - p, p], dim=1)
+    while rows.shape[0] > 1:
+        carry = None
+        if rows.shape[0] % 2:
+            carry, rows = rows[-1], rows[:-1]
+        n = 2 * rows.shape[1] - 1
+        nfft = 1 << max(1, (n - 1).bit_length())
+        f = torch.fft.rfft(rows, nfft, dim=-1)
+        rows = torch.clamp(torch.fft.irfft(f[0::2] * f[1::2], nfft,
+                                           dim=-1)[:, :n], min=0.0)
+        if carry is not None:
+            rows = torch.cat([rows, F.pad(
+                carry, (0, rows.shape[1] - carry.shape[0]))[None]])
+    return rows[0, :p.shape[0] + 1]
+
+
+def moments(coeffs):
+    """(mass, mean, variance) of a coefficient vector, in float64."""
+    import torch
+    c = coeffs.double()
+    k = torch.arange(c.shape[0], dtype=torch.float64, device=c.device)
+    mass = float(c.sum())
+    mean = float((c * k).sum()) / mass
+    return mass, mean, float((c * (k - mean) ** 2).sum()) / mass
+
+
+def check_moments(name, coeffs, mean, var, mass_tol, mean_tol=1e-6,
+                  var_tol=1e-4) -> dict:
+    m, mu, v = moments(coeffs)
+    out = dict(mass_err=m - 1.0, mean_rel=(mu - mean) / mean,
+               var_rel=(v - var) / var)
+    print(f"{name}: sum - 1 = {out['mass_err']:.3e} (tolerance {mass_tol}), "
+          f"mean rel err {out['mean_rel']:.3e} ({mean_tol}), variance rel "
+          f"err {out['var_rel']:.3e} ({var_tol})")
+    check(abs(out["mass_err"]) <= mass_tol, f"{name}: mass {m}")
+    check(abs(out["mean_rel"]) <= mean_tol, f"{name}: mean {mu} vs {mean}")
+    check(abs(out["var_rel"]) <= var_tol, f"{name}: variance {v} vs {var}")
+    return out
+
+
+def value_path(db) -> dict:
+    """The value layer at the paper's sizes (module docstring, phase 4)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import approx, pgf
+    from repro_torch.core import poisson_binomial as pb
+    from repro_torch.db import operators, tpch
+    from repro_torch.kernels import ops
+    dev = db.lineitem.device
+    report = {}
+    # Fig. 9's smallest n, drawn as benchmarks/fig9_count.py:31 draws it.
+    p = torch.as_tensor(np.random.default_rng(0).uniform(0, 1, FIG9_N),
+                        dtype=torch.float32).to(dev)
+    p64, ones = p.double(), torch.ones_like(p)
+    li = db.lineitem
+    prob, qty = li.masked_prob(), li["l_quantity"]
+    rng = np.random.default_rng(1)
+    p_a, p_b = (torch.as_tensor(rng.uniform(0, 1, 1000),
+                                dtype=torch.float32).to(dev) for _ in "ab")
+    p_g = torch.as_tensor(rng.uniform(0, 1, 1600), dtype=torch.float32).to(dev)
+    v_g = torch.arange(1600, device=dev) // 400 + 1       # 400 each of 1..4
+    calls = {
+        "count_pgf n=1e8": lambda: pb.count_pgf(p),
+        "count_pgf n=1e8 float64": lambda: pb.count_pgf(p64),
+        "fit_from_data n=1e8": lambda: approx.fit_from_data(p, ones, p=3),
+        "fit_normal n=1e8": lambda: approx.fit_normal(p, ones),
+        "sum_pgf SF1": lambda: pb.sum_pgf(prob, qty),
+        "q18_topk SF1 kappa=8": lambda: tpch.q18_topk(
+            db, max_groups=Q18_TOPK_GROUPS, kappa=8),
+        "q18_topk SF1 kappa=2": lambda: tpch.q18_topk(
+            db, max_groups=Q18_TOPK_GROUPS, kappa=2),
+        "schoolbook 1001x1001": lambda: pb.count_pgf(p_a).mul_sum(
+            pb.count_pgf(p_b)),
+        "schoolbook grouped SUM n=1600": lambda: pb.sum_pgf(
+            p_g, v_g, method="grouped"),
+    }
+    for fn in calls.values():                  # warm-up (cuFFT plans)
+        fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res, wall = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        print(f"value layer {name}: {wall[name]:.1f} ms")
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"value-layer launches: {launches} (expected {VALUE_LAUNCHES}); "
+          f"peak device memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f}"
+          " GB above the resident tables and inputs)")
+    check(launches == VALUE_LAUNCHES, f"value-layer launches {launches}")
+    report.update(wall_ms=wall, launches=launches, peak_bytes=peak,
+                  peak_above_resident_bytes=peak - base)
+
+    # Exact COUNT at 10^8.  The float32 run's factor rows (fl(1-p), p)
+    # miss mass 1 by the rounding of 1 - p: printed as sum log(row mass);
+    # its FFTs run in float64 as the float64 run's do, so the two runs
+    # differ by that rounding, about 1e-5 of the peak: tolerance 1e-4 of
+    # the peak coefficient, and 1e-4 on the float32 mass.
+    mean, var = float(p64.sum()), float((p64 * (1 - p64)).sum())
+    row_log = float(torch.log((1.0 - p).double() + p64).sum())
+    print(f"COUNT n=1e8: sum log(float32 row mass) {row_log:.3e}")
+    c32 = res["count_pgf n=1e8"].coeffs
+    c64 = res["count_pgf n=1e8 float64"].coeffs
+    report["count32"] = check_moments("COUNT n=1e8 float32", c32, mean, var,
+                                      mass_tol=1e-4)
+    report["count64"] = check_moments("COUNT n=1e8 float64", c64, mean, var,
+                                      mass_tol=1e-6)
+    peak_c = float(c64.max())
+    diff = float((c32.double() - c64).abs().max()) / peak_c
+    print(f"COUNT n=1e8 float32 vs float64: max diff / peak {diff:.3e} "
+          "(tolerance 1e-4)")
+    check(diff <= 1e-4, f"COUNT float32 vs float64 {diff}")
+    ref32 = float32_fft_tree(p)
+    m, mu, v = moments(ref32)
+    report["count_float32_ffts"] = dict(
+        mass_err=m - 1.0, mean_rel=(mu - mean) / mean, var_rel=(v - var) / var,
+        peak_ratio=float(ref32.max()) / peak_c)
+    print("COUNT n=1e8 with float32 FFTs (the JAX package's arithmetic, "
+          f"reported): sum - 1 = {m - 1:.3e}, mean rel err "
+          f"{(mu - mean) / mean:.3e}, variance rel err {(v - var) / var:.3e}, "
+          f"peak / float64 peak {float(ref32.max()) / peak_c:.3e}")
+    del ref32
+    # Fig. 10: the 0.95-interval lower end, gamma mixture and Normal
+    # against the exact (float64) distribution.
+    lo = float(pgf.PGF(c64).confidence_interval(0.95)[0])
+    fig10 = dict(exact_lo=lo)
+    for name, key in (("gamma mixture", "fit_from_data n=1e8"),
+                      ("Normal", "fit_normal n=1e8")):
+        approx_lo = float(res[key].confidence_interval(0.95)[0])
+        fig10[name] = abs(approx_lo - lo) / lo
+        print(f"Fig. 10 at n=1e8: {name} 0.95-interval lower end "
+              f"{approx_lo:.1f} vs exact {lo:.0f}: rel err {fig10[name]:.3e}")
+    report["fig10"] = fig10
+
+    # Exact SUM over the SF1 lineitem (6M float32 rows: mass as above).
+    pd, vd = prob.double(), qty.double()
+    row_log = float(torch.log((1.0 - prob).double() + pd).sum())
+    print(f"SUM SF1: sum log(float32 row mass) {row_log:.3e}")
+    report["sum"] = check_moments(
+        "SUM SF1", res["sum_pgf SF1"].coeffs, float((vd * pd).sum()),
+        float((vd * vd * pd * (1 - pd)).sum()), mass_tol=1e-4)
+
+    # Schoolbook products against fft_convolve of the same factors, within
+    # 1e-5 of the peak (float32 accumulation over <= 1001 terms).
+    a, b = pb.count_pgf(p_a), pb.count_pgf(p_b)
+    parts = [pb.count_pgf(p_g[v_g == k]).stretch(k) for k in range(1, 5)]
+    want_g = parts[0].coeffs
+    for f in parts[1:]:
+        want_g = pgf.fft_convolve(want_g, f.coeffs)
+    report["schoolbook"] = {}
+    for name, want in (("schoolbook 1001x1001",
+                        pgf.fft_convolve(a.coeffs, b.coeffs)),
+                       ("schoolbook grouped SUM n=1600", want_g)):
+        got = res[name].coeffs
+        check(got.shape == want.shape, f"{name}: shape")
+        err = float((got.double() - want.double()).abs().max()
+                    / want.double().max())
+        report["schoolbook"][name] = err
+        print(f"{name} vs fft_convolve: max diff / peak {err:.3e} "
+              "(tolerance 1e-5)")
+        check(err <= 1e-5, f"{name}: {err}")
+
+    # q18_topk: per valid group sum(run_mass) + p_tail = 1; p_empty equals
+    # 1 - the group's AtLeastOne confidence; no tail at kappa 8 (an order
+    # has at most 4 lines); at kappa 2 a tail in some groups, never above
+    # p_tail.
+    ids, _, _ = operators.group_ids(li, ["l_orderkey"], Q18_TOPK_GROUPS)
+    conf = operators.group_atleastone(li, ids, Q18_TOPK_GROUPS)
+    report["q18_topk"] = {}
+    for kappa in (8, 2):
+        r = res[f"q18_topk SF1 kappa={kappa}"]
+        v = r["valid"]
+        mass = r["run_mass"].reshape(-1, kappa).double().sum(1)
+        tot = float((mass + r["p_tail"].double() - 1.0)[v].abs().max())
+        emp = float((r["p_empty"].double() - (1.0 - conf.double()))[v]
+                    .abs().max())
+        tail = r["tail_mass"][v]
+        out = dict(groups=int(v.sum()), mass_err=tot, p_empty_err=emp,
+                   tail_max=float(tail.max()),
+                   tail_groups=int((tail > 0).sum()))
+        report["q18_topk"][kappa] = out
+        print(f"q18_topk kappa={kappa}: {out['groups']} groups; max |sum "
+              f"run_mass + p_tail - 1| {tot:.3e} (tolerance 1e-5); max "
+              f"|p_empty - (1 - AtLeastOne)| {emp:.3e} (tolerance 1e-5); "
+              f"tail_mass > 0 in {out['tail_groups']} groups, max "
+              f"{out['tail_max']:.3e}")
+        check(tot <= 1e-5, f"q18_topk kappa={kappa}: run mass {tot}")
+        check(emp <= 1e-5, f"q18_topk kappa={kappa}: p_empty {emp}")
+        if kappa == 8:
+            check(out["tail_max"] == 0.0, "q18_topk kappa=8: tail mass")
+        else:
+            check(out["tail_groups"] > 0, "q18_topk kappa=2: no tail")
+            check(bool((tail <= r["p_tail"][v]).all()),
+                  "q18_topk kappa=2: tail_mass above p_tail")
+
+    for name, fn in calls.items():
+        check(bit_equal(value_leaves(res[name]), value_leaves(fn())),
+              f"{name}: rerun is not bit-equal")
+    print("value layer bit-equal reruns: ok")
+    return report
+
+
+def value_small(device: str) -> dict:
+    """The value layer at n_orders=2000 on one device (phase 5)."""
+    from repro_torch.core import poisson_binomial as pb
+    from repro_torch.db import tpch
+    db = tpch.generate(n_orders=2000, seed=0, device=device)
+    p, q = db.lineitem.masked_prob(), db.lineitem["l_quantity"]
+    return {
+        "count cf n=1000": pb.count_pgf(p[:1000], method="cf").coeffs,
+        "count tree": pb.count_pgf(p, method="tree").coeffs,
+        "sum cf n=500": pb.sum_pgf(p[:500], q[:500], method="cf").coeffs,
+        "sum grouped": pb.sum_pgf(p, q, method="grouped").coeffs,
+        "schoolbook": pb.count_pgf(p[:1000]).mul_sum(
+            pb.count_pgf(p[1000:2000])).coeffs,
+        "q18_topk kappa=8": tpch.q18_topk(db, max_groups=2048, kappa=8),
+        "q18_topk kappa=2": tpch.q18_topk(db, max_groups=2048, kappa=2),
+    }
+
+
 def compare_small(cpu, gpu) -> dict:
     """Card against CPU at a small size: integer and boolean leaves equal,
     float leaves within 2e-4 of the leaf's largest magnitude (per order
@@ -481,6 +800,13 @@ def compare_small(cpu, gpu) -> dict:
             if not a.numel():
                 continue
             a64, b64 = a.double(), b.double()
+            fin = torch.isfinite(a64)
+            check(torch.equal(fin, torch.isfinite(b64))
+                  and torch.equal(a64[~fin], b64[~fin]),
+                  f"{name}{pa}: non-finite entries differ CPU vs card")
+            a64, b64 = a64[fin], b64[fin]
+            if not a64.numel():
+                continue
             if "cumulants" in pa:       # per order: columns differ by v^j
                 a64, b64 = (x.reshape(-1, a.shape[-1]) for x in (a64, b64))
                 orders = a.shape[-1]
@@ -608,7 +934,11 @@ def main() -> int:
                           for name in ("q1/aggregate", "q3/aggregate",
                                        "q6/aggregate_exact",
                                        "q18/aggregate_exact")}
-    del res, db
+    del res
+    torch.cuda.empty_cache()
+
+    report["value_layer"] = value_path(db)
+    del db
     torch.cuda.empty_cache()
 
     small = dict(n_orders=2000, seed=0)
@@ -624,14 +954,22 @@ def main() -> int:
           f"scale {small_cmp['max_rel']:.3e} (tolerance 2e-4; cumulant "
           "orders 1-4 scaled by their coefficient sums); cumulant orders "
           f"5-8: {small_cmp['cumulant_orders_above_4_rel']:.3e} (reported)")
+    small_values = compare_small(value_small("cpu"), value_small("cuda"))
+    report["small_values_cpu_vs_card"] = small_values
+    print("small size (n_orders=2000) value layer, CPU plain vs card "
+          f"kernels: max err / scale {small_values['max_rel']:.3e} "
+          "(tolerance 2e-4; values, validity and group ids equal)")
 
+    # launches: the TPC-H path's run plus the value-layer path's run.
+    value_launches = report["value_layer"]["launches"]
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
-                 "group_cumulant_sums"):
+                 "group_cumulant_sums", "polymul"):
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name],
-                            launches=launches[name], **r))
+                            launches=launches[name] + value_launches[name],
+                            **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,16 @@ Glade's Initialize / Accumulate / Merge / Finalize (paper §VI-A):
     finalize(state)                 -> per-group results
 
 Registered here: ``AtLeastOne`` (P(group non-empty)), ``SumNormal``
-((mean, variance) terms), ``SumCumulants`` (sum v^j kappa_j(p)) and
-``SumCF`` (exact SUM/COUNT log characteristic function).
+((mean, variance) terms), ``SumCumulants`` (sum v^j kappa_j(p)),
+``SumCF`` (exact SUM/COUNT log characteristic function) and ``MinMax``
+(top-kappa (value, survival) lists for MIN / MAX).
 
-:func:`accumulate` is the canonical loop: eligible CF / cumulant
-accumulations go to the kernels of :mod:`repro_torch.kernels` under the
-dispatch guards of ``kernels/ops.py`` (on a CUDA tensor the CUDA kernel,
-on a CPU tensor its plain version), and every other UDA runs a blocked
-Python loop over tuple blocks with the JAX package's block sizing.
+:func:`accumulate` is the canonical loop: MinMax consumes the whole
+column at once; eligible CF / cumulant accumulations go to the kernels of
+:mod:`repro_torch.kernels` under the dispatch guards of ``kernels/ops.py``
+(on a CUDA tensor the CUDA kernel, on a CPU tensor its plain version), and
+every other UDA runs a blocked Python loop over tuple blocks with the JAX
+package's block sizing.
 :func:`accumulate_chunked` folds per-canonical-chunk states in the one
 fixed :func:`tree_fold` tree.  Every reduction runs in a fixed order, so a
 chunk's state is the same bits on every run.
@@ -27,9 +29,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .approx import MAX_ORDER, _bernoulli_cumulant_polys
-from .config import default_float
+from .config import default_float, resolve_device
 
 # The canonical tiling constants: bound the block loop's working set to
 # ~2^23 elements so the (block, F) phase tile stays bounded regardless of
@@ -37,6 +40,8 @@ from .config import default_float
 # within budget.
 _BLOCK_FLOOR = 64
 _ELEM_BUDGET = 1 << 23
+_INT32_MIN = torch.iinfo(torch.int32).min
+_INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def _tiny(dtype) -> float:
@@ -76,13 +81,24 @@ def _merge_fields(a, b):
     return type(a)(*(x + y for x, y in zip(a, b)))
 
 
+def masked_probs(probs, mask):
+    """A masked-out tuple is exactly a p = 0 tuple for every UDA."""
+    if mask is None:
+        return probs
+    return torch.where(mask, probs, torch.zeros_like(probs))
+
+
 # ======================================================================
 # protocol
 # ======================================================================
 class UDA:
     """Base grouped UDA: additive merge, per-row working-set width 1."""
 
-    def init(self, max_groups: int, dtype=None, device="cpu"):
+    #: streaming UDAs accumulate block by block in the canonical loop;
+    #: non-streaming ones (MinMax) consume the full column at once.
+    streaming: bool = True
+
+    def init(self, max_groups: int, dtype=None, device="cuda"):
         raise NotImplementedError
 
     def update(self, state, probs, values, gids):
@@ -109,9 +125,10 @@ class AtLeastOneState(NamedTuple):
 class AtLeastOne(UDA):
     """P(at least one tuple present) per group: 1 - prod(1 - p)."""
 
-    def init(self, max_groups, dtype=None, device="cpu"):
+    def init(self, max_groups, dtype=None, device="cuda"):
         return AtLeastOneState(torch.zeros(
-            (max_groups,), dtype=dtype or default_float(), device=device))
+            (max_groups,), dtype=dtype or default_float(),
+            device=resolve_device(device)))
 
     def update(self, state, probs, values, gids):
         return AtLeastOneState(
@@ -129,9 +146,10 @@ class NormalState(NamedTuple):
 
 
 class SumNormal(UDA):
-    def init(self, max_groups, dtype=None, device="cpu"):
+    def init(self, max_groups, dtype=None, device="cuda"):
         return NormalState(torch.zeros(
-            (max_groups, 2), dtype=dtype or default_float(), device=device))
+            (max_groups, 2), dtype=dtype or default_float(),
+            device=resolve_device(device)))
 
     def update(self, state, probs, values, gids):
         mu_t = values * probs
@@ -158,10 +176,10 @@ class SumCumulants(UDA):
             raise ValueError(f"orders must be in [1, {MAX_ORDER}]")
         self.orders = int(orders)
 
-    def init(self, max_groups, dtype=None, device="cpu"):
+    def init(self, max_groups, dtype=None, device="cuda"):
         return CumulantState(torch.zeros(
             (max_groups, self.orders), dtype=dtype or default_float(),
-            device=device))
+            device=resolve_device(device)))
 
     def update(self, state, probs, values, gids):
         dtype, dev = probs.dtype, probs.device
@@ -222,9 +240,10 @@ class SumCF(UDA):
         self.freq_cnt = (int(freq_cnt) if freq_cnt is not None
                          else self.num_freq)
 
-    def init(self, max_groups, dtype=None, device="cpu"):
+    def init(self, max_groups, dtype=None, device="cuda"):
         shape = (max_groups, self.freq_cnt)
         dtype = dtype or default_float()
+        device = resolve_device(device)
         return CFState(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
 
@@ -273,6 +292,219 @@ class SumCF(UDA):
 
     def row_budget(self) -> int:
         return self.freq_cnt
+
+
+def CountCF(capacity: int) -> SumCF:
+    """COUNT = SUM of T_COUNT-translated all-ones values (§IV-F step 1)."""
+    return SumCF(capacity + 1)
+
+
+# ======================================================================
+# MinMax — grouped top-kappa (value, survival) lists (§V-B, §VII-C)
+# ======================================================================
+class MinMaxState(NamedTuple):
+    values: torch.Tensor         # (G, kappa) sign-folded, sorted, pad +inf
+    log_none: torch.Tensor       # (G, kappa) sum log(1-p) of tuples at value
+    tail_log_none: torch.Tensor  # (G,) log prod(1-p) over *evicted* values
+    total_log_none: torch.Tensor  # (G,) log prod(1-p) over all tuples seen
+
+
+def _kept_log_none(state: MinMaxState):
+    """log_none of the kept (finite) values, 0 at the +inf padding."""
+    return torch.where(torch.isfinite(state.values), state.log_none, 0.0)
+
+
+class MinMax(UDA):
+    """The paper's ordered (value, AtLeastOne) list with capacity kappa, as
+    fixed-shape (G, kappa) buffers: a sorted top-kappa buffer per group,
+    merged by a bitonic network + run folding.  ``sign`` = +1 for MIN
+    (keep smallest), -1 for MAX (values stored negated so the merge logic
+    is shared).  Not additive: partial states fold with :meth:`merge`."""
+
+    streaming = False
+
+    def __init__(self, kappa: int = 64, sign: float = 1.0):
+        self.kappa = int(kappa)
+        self.sign = float(sign)
+
+    def init(self, max_groups, dtype=None, device="cuda"):
+        dtype = dtype or default_float()
+        device = resolve_device(device)
+        return MinMaxState(
+            torch.full((max_groups, self.kappa), math.inf, dtype=dtype,
+                       device=device),
+            torch.zeros((max_groups, self.kappa), dtype=dtype, device=device),
+            torch.zeros((max_groups,), dtype=dtype, device=device),
+            torch.zeros((max_groups,), dtype=dtype, device=device))
+
+    def accumulate_full(self, state, probs, values, gids, max_groups):
+        """``state=None`` means "fresh init" (the canonical loop's hint):
+        the constructed chunk buffer is returned directly."""
+        dtype = probs.dtype if state is None else state.values.dtype
+        dev = probs.device
+        p = probs.to(dtype)
+        v = values.to(dtype) * self.sign
+        v = torch.where(p > 0, v, math.inf)    # masked / p=0 never matter
+        logq = torch.log1p(-p)
+        n = p.shape[0]
+        gids = gids.to(torch.int64)
+        # Rows ordered by (group, folded value): a stable sort by value,
+        # then a stable sort by group — the permutation of the JAX
+        # package's stable two-key sort.
+        order = torch.sort(v, stable=True).indices
+        order = order[torch.sort(gids[order], stable=True).indices]
+        gs, vs, lqs = gids[order], v[order], logq[order]
+
+        # Fold duplicate (group, value) runs.
+        head = torch.ones((n,), dtype=torch.bool, device=dev)
+        head[1:] = (gs[1:] != gs[:-1]) | (vs[1:] != vs[:-1])
+        seg = torch.cumsum(head, 0) - 1
+        run_idx = torch.arange(n, device=dev)
+        exists = run_idx < seg[-1] + 1
+        run_lq = segment_sum(lqs, seg, n)
+        # Segment min / max; empty segments keep the JAX package's values
+        # (+inf for the min, the int32 minimum, then clipped, for the max).
+        run_v = torch.full((n,), math.inf, dtype=dtype, device=dev) \
+            .scatter_reduce(0, seg, vs, "amin", include_self=False)
+        run_g = torch.full((n,), _INT32_MIN, dtype=torch.int64, device=dev) \
+            .scatter_reduce(0, seg, gs, "amax", include_self=False)
+        run_g = torch.where(exists, torch.clamp(run_g, 0, max_groups - 1),
+                            max_groups - 1)
+
+        # Rank of each run within its group = run index - group's first run.
+        grp_first = torch.full((max_groups,), _INT32_MAX, dtype=torch.int64,
+                               device=dev).scatter_reduce(
+            0, run_g, torch.where(exists, run_idx, n), "amin",
+            include_self=False)
+        rank = run_idx - grp_first[run_g]
+
+        finite = torch.isfinite(run_v)
+        keep = exists & finite & (rank < self.kappa)
+        chunk_v = torch.full((max_groups, self.kappa), math.inf, dtype=dtype,
+                             device=dev)
+        chunk_v[run_g[keep], rank[keep]] = run_v[keep]
+        # Kept (group, rank) slots are distinct, so a masked put is the
+        # JAX package's scatter-add onto zeros.
+        chunk_lq = torch.zeros((max_groups, self.kappa), dtype=dtype,
+                               device=dev)
+        chunk_lq[run_g[keep], rank[keep]] = run_lq[keep]
+        evicted = exists & finite & (rank >= self.kappa)
+        chunk_tail = segment_sum(torch.where(evicted, run_lq, 0.0), run_g,
+                                 max_groups)
+        chunk_total = segment_sum(logq, gids, max_groups)
+        chunk = MinMaxState(chunk_v, chunk_lq, chunk_tail, chunk_total)
+        # merge(init, x) == x bitwise, so a fresh state needs no merge.
+        return chunk if state is None else self.merge(state, chunk)
+
+    def merge(self, a: MinMaxState, b: MinMaxState) -> MinMaxState:
+        """Bitonic two-way merge + run fold + top-k truncation: both inputs
+        keep their rows sorted (the state invariant), so ascending(a) ++
+        descending(b) is bitonic and log2(2k) compare-exchange stages
+        finish the merge.  A value present in both inputs lands in two
+        adjacent slots; the run fold collapses each equal-value run into
+        its head slot (log_none sums) BEFORE the top-k truncation, so
+        duplicates never compete for the kappa capacity."""
+        k = self.kappa
+        pw = 1 << (k - 1).bit_length()       # bitonic needs a 2^m half
+        v = torch.cat([F.pad(a.values, (0, pw - k), value=math.inf),
+                       torch.flip(F.pad(b.values, (0, pw - k),
+                                        value=math.inf), (1,))], dim=1)
+        lq = torch.cat([F.pad(a.log_none, (0, pw - k)),
+                        torch.flip(F.pad(b.log_none, (0, pw - k)), (1,))],
+                       dim=1)
+        g = v.shape[0]
+        s = pw
+        while s >= 1:
+            vr = v.reshape(g, -1, 2, s)
+            lr = lq.reshape(g, -1, 2, s)
+            swap = vr[:, :, 0] > vr[:, :, 1]
+            v = torch.stack([torch.where(swap, vr[:, :, 1], vr[:, :, 0]),
+                             torch.where(swap, vr[:, :, 0], vr[:, :, 1])],
+                            dim=2).reshape(g, -1)
+            lq = torch.stack([torch.where(swap, lr[:, :, 1], lr[:, :, 0]),
+                              torch.where(swap, lr[:, :, 0], lr[:, :, 1])],
+                             dim=2).reshape(g, -1)
+            s //= 2
+        # Run fold: both inputs hold DISTINCT values, so an equal-value run
+        # spans at most two slots and its log_none total is one pairwise
+        # add; heads then compact to their run index with a batched binary
+        # search + gather.  (Empty +inf slots form one trailing run with
+        # log_none 0, so any fold of it is exact.)
+        w = v.shape[1]
+        finite = torch.isfinite(v)
+        dup = torch.zeros_like(finite)
+        dup[:, 1:] = v[:, 1:] == v[:, :-1]
+        head = ~dup
+        absorb = torch.zeros_like(dup)
+        absorb[:, :-1] = dup[:, 1:]
+        lq_next = torch.zeros_like(lq)
+        lq_next[:, :-1] = lq[:, 1:]
+        tot = lq + torch.where(absorb, lq_next, 0.0)
+        run = torch.cumsum(head, dim=1) - 1          # run index per slot
+        evicted = torch.where(head & finite & (run >= k), tot, 0.0)
+        # Branchless batched lower_bound over the k kept output slots:
+        # src[g, j] = head slot of run j (first position with run >= j).
+        idx = torch.arange(k, device=v.device)
+        pos = torch.full((g, k), -1, dtype=torch.int64, device=v.device)
+        step = w
+        while step > 1:
+            step //= 2
+            cand = torch.clamp(pos + step, max=w - 1)
+            less = torch.gather(run, 1, cand) < idx[None, :]
+            pos = torch.where(less, cand, pos)
+        src = torch.clamp(pos + 1, 0, w - 1)         # head slot of run j
+        ok = idx[None, :] <= run[:, -1:]             # run j exists
+        v = torch.where(ok, torch.gather(v, 1, src), math.inf)
+        lq = torch.where(ok, torch.gather(tot, 1, src), 0.0)
+        return MinMaxState(v, lq,
+                           a.tail_log_none + b.tail_log_none + evicted.sum(1),
+                           a.total_log_none + b.total_log_none)
+
+    def finalize(self, state: MinMaxState):
+        """P(agg = v_j) = prod_{v_l better} Q_l * (1 - Q_j)  (§V-B.1), with
+        Q_l = prod over tuples at value v_l of (1 - p).  Returns per-group
+        (values, masses, p_tail): values un-folded (true MAX values for
+        sign = -1); p_tail = P(aggregate beyond the kept support) — evicted
+        values or the empty world."""
+        finite = torch.isfinite(state.values)
+        lq = _kept_log_none(state)
+        prefix = torch.zeros_like(lq)
+        prefix[:, 1:] = torch.cumsum(lq, dim=1)[:, :-1]
+        mass = torch.exp(prefix) * (1.0 - torch.exp(lq)) * finite
+        p_tail = torch.exp(torch.sum(lq, dim=1))
+        return state.values * self.sign, mass, p_tail
+
+    def p_empty(self, state: MinMaxState):
+        """Exact P(aggregate undefined) = prod over all tuples of (1-p)."""
+        return torch.exp(state.total_log_none)
+
+    def tail_mass(self, state: MinMaxState):
+        """Per-group §V-B.2 truncation mass: the probability that the exact
+        aggregate lies STRICTLY beyond the kept kappa-support,
+
+            prod_kept Q_j * (1 - prod_evicted (1-p)),
+
+        exactly 0 when kappa covered every distinct value."""
+        kept = torch.sum(_kept_log_none(state), dim=1)
+        return torch.exp(kept) * -torch.expm1(state.tail_log_none)
+
+
+# ======================================================================
+# registry
+# ======================================================================
+REGISTRY = {
+    "atleastone": AtLeastOne,
+    "normal": SumNormal,
+    "cumulants": SumCumulants,
+    "cf": SumCF,
+    "count_cf": CountCF,
+    "min": lambda **kw: MinMax(sign=1.0, **kw),
+    "max": lambda **kw: MinMax(sign=-1.0, **kw),
+}
+
+
+def make(name: str, **kwargs) -> UDA:
+    return REGISTRY[name](**kwargs)
 
 
 # ======================================================================
@@ -356,14 +588,21 @@ def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
             val_sources.append(src)
 
     states = dict(states or {})
-    for name, u in udas.items():
-        if name not in states:
-            states[name] = u.init(max_groups, dtype, dev)
+    fresh = {name for name in udas if name not in states}
+    for name in fresh:
+        # A fresh non-streaming state stays unmaterialised: accumulate_full
+        # receives None and skips the no-op merge with the init buffer.
+        if udas[name].streaming:
+            states[name] = udas[name].init(max_groups, dtype, dev)
 
     scan_udas = {}
     for name, u in udas.items():
         i = val_index[name]
-        if _kernel_eligible(u, probs, val_integral[i]):
+        if not u.streaming:
+            states[name] = u.accumulate_full(
+                None if name in fresh else states[name], probs,
+                val_arrays[i], gids_full, max_groups)
+        elif _kernel_eligible(u, probs, val_integral[i]):
             # CF kernels take the pre-cast (integer) source; the cumulant
             # kernels compute float value powers and take the cast column.
             vals = val_sources[i] if isinstance(u, SumCF) else val_arrays[i]

@@ -6,6 +6,8 @@
     III  sigma_{A theta B}       `reweight`: p *= P(theta)
     IV   R join_C S              `fk_join` (many-to-one)
     V    pi_A                    `project`: GROUP BY + AtLeastOne UDA
+    VI   GROUP BY + PGF UDAs     `group_*` (AtLeastOne, Normal, cumulants,
+                                 exact CF, MIN/MAX)
 
 Grouping uses a fixed ``max_groups``: live key codes are packed into one
 int64 code, the ``max_groups`` smallest distinct codes form the group
@@ -169,9 +171,96 @@ def fk_join(left: Table, right: Table, left_key: str, right_key: str,
     return Table(cols, prob, valid, left.part)
 
 
+# ------------------------------------------------- grouped aggregation UDAs
+def group_atleastone(table: Table, ids, max_groups: int):
+    """Per-group confidence 1 - prod(1-p) — the 'group confidence' query
+    mode."""
+    u = uda.AtLeastOne()
+    st = uda.accumulate({"a": u}, table.masked_prob(), None, ids,
+                        max_groups=max_groups)["a"]
+    return u.finalize(st)
+
+
+def group_normal_terms(table: Table, values, ids, max_groups: int):
+    """Per-group (mean, var) of the probabilistic SUM (paper §V-C.3 Normal,
+    with the variance erratum fixed: var = sum v^2 p (1-p))."""
+    u = uda.SumNormal()
+    st = uda.accumulate({"n": u}, table.masked_prob(), values, ids,
+                        max_groups=max_groups)["n"]
+    return u.finalize(st)
+
+
+def group_cumulant_terms(table: Table, values, ids, max_groups: int,
+                         orders: int = 8):
+    """Per-group cumulant partial sums (G, orders) for the moment method."""
+    st = uda.accumulate({"c": uda.SumCumulants(orders)}, table.masked_prob(),
+                        values, ids, max_groups=max_groups)["c"]
+    return st.terms
+
+
+def group_logcf(table: Table, values, ids, max_groups: int, num_freq: int,
+                block: int = 512):
+    """Per-group summed log CF -> (G, F) log_abs and angle (exact SUM/COUNT
+    per group), via the canonical loop of core/uda.py (the grouped CF
+    kernel where the ``kernels/ops.py`` guards allow it)."""
+    st = uda.accumulate({"cf": uda.SumCF(num_freq)}, table.masked_prob(),
+                        values, ids, max_groups=max_groups, block=block)["cf"]
+    return st.log_abs, st.angle
+
+
+def group_logcf_finalize(la, an):
+    """(G, F) log CF -> (G, F) coefficient rows via one batched FFT."""
+    return uda.SumCF(la.shape[-1]).finalize(uda.CFState(la, an))
+
+
+def minmax_runs(u: uda.MinMax, state: uda.MinMaxState) -> dict:
+    """Flatten a grouped MinMax state into the per-run dict consumed by the
+    query modes: (run_group, run_value, run_mass, run_valid) over the
+    G*kappa buffer grid, plus per-group p_empty, the truncation p_tail and
+    the §V-B.2 tail mass."""
+    values, mass, p_tail = u.finalize(state)
+    g, k = values.shape
+    finite = torch.isfinite(values)
+    return dict(run_group=torch.repeat_interleave(
+                    torch.arange(g, device=values.device), k),
+                run_value=values.reshape(-1),
+                run_mass=torch.where(finite, mass, 0.0).reshape(-1),
+                run_valid=finite.reshape(-1),
+                p_empty=u.p_empty(state), p_tail=p_tail,
+                tail_mass=u.tail_mass(state))
+
+
+def group_minmax(table: Table, values, ids, max_groups: int,
+                 sign: float = 1.0, kappa: int | None = None):
+    """Grouped MIN (sign=+1) / MAX (sign=-1) masses via the MinMax UDA
+    (paper §V-B.1):
+
+        P(agg = v_j) = prod_{v_l better than v_j} Q_l * (1 - Q_j),
+        Q_l = prod_{tuples at v_l} (1 - p).
+
+    ``kappa`` bounds the per-group support kept (default: exact up to 128
+    distinct values; overflow mass is reported in ``p_tail``, §V-B.2).
+    Returns the flattened run dict of :func:`minmax_runs`."""
+    if kappa is None:
+        kappa = min(table.capacity, 128)
+    u = uda.MinMax(kappa=kappa, sign=sign)
+    st = uda.accumulate({"m": u}, table.masked_prob(), values, ids,
+                        max_groups=max_groups)["m"]
+    return minmax_runs(u, st)
+
+
 # --------------------------------------------- scalar comparison epilogues
 def normal_greater(mu, var, threshold):
     """P(N(mu, var) > threshold), vectorised over groups (§VII-D epilogue)."""
     sigma = torch.sqrt(torch.clamp(var, min=1e-30))
     z = (threshold - mu) / sigma
     return 0.5 * torch.special.erfc(z / math.sqrt(2.0))
+
+
+def cf_greater(la, an, threshold):
+    """Exact P(S > t) from per-group log CF rows (G, F)."""
+    coeffs = group_logcf_finalize(la, an)
+    idx = torch.arange(la.shape[-1], device=la.device)
+    mask = idx[None, :] > torch.as_tensor(threshold,
+                                          device=la.device)[:, None]
+    return torch.sum(coeffs * mask, dim=-1)

@@ -86,15 +86,17 @@ class GroupAgg(Node):
     """Returns a dict of per-group UDA results, not a Table.
 
     The primary aggregate lands under "sum" / "cumulants" / "exact" (by
-    method); each `extra` entry (name, value_col, agg, method) rides the
-    SAME accumulation pass under its own name.  Group confidence
+    method) or "minmax" (MIN / MAX: the run dict of
+    :func:`repro_torch.db.operators.minmax_runs`); each `extra` entry
+    (name, value_col, agg, method) rides the SAME accumulation pass under
+    its own name.  Group confidence
     (AtLeastOne) is always included.  `value` == "" means COUNT.
     ``method="exact"`` needs ``num_freq`` = max aggregate value + 1 and
     yields a (max_groups, num_freq) row-stochastic coefficient matrix."""
     child: Node
     keys: tuple
     value: str            # column to aggregate ("" = COUNT)
-    agg: str              # SUM | COUNT (MIN | MAX wait for a later slice)
+    agg: str              # SUM | COUNT | MIN | MAX
     max_groups: int
     method: str = "normal"  # normal | cumulants | exact
     extra: tuple = ()
@@ -157,12 +159,14 @@ def plan_params(root: Node) -> frozenset:
     return frozenset(names)
 
 
-def _agg_uda(agg: str, method: str, num_freq: int = 0, freq_lo: int = 0,
-             freq_cnt: int | None = None) -> uda.UDA:
+def _agg_uda(agg: str, method: str, kappa: int, num_freq: int = 0,
+             freq_lo: int = 0, freq_cnt: int | None = None) -> uda.UDA:
     if agg in ("MIN", "MAX"):
-        raise NotImplementedError(
-            "MIN/MAX aggregates (the MinMax UDA) wait for a later slice of "
-            "the port")
+        if method == "exact":
+            raise ValueError(
+                "GroupAgg method 'exact' applies to SUM/COUNT only; MIN/MAX "
+                "distributions come from the MinMax UDA (kappa support)")
+        return uda.MinMax(kappa=kappa, sign=1.0 if agg == "MIN" else -1.0)
     if agg not in ("SUM", "COUNT"):
         raise ValueError(agg)
     if method == "normal":
@@ -234,11 +238,12 @@ def _slab_udas(pa, si: int, lo: int, cnt: int, values: dict) -> tuple:
         vals_i["confidence"] = None
         for name, _value, agg, method in pa.specs:
             if method != "exact":
-                udas_i[name] = _agg_uda(agg, method)
+                udas_i[name] = _agg_uda(agg, method, pa.kappa)
                 vals_i[name] = values[name]
     for name, _value, agg, method in pa.specs:
         if method == "exact":
-            udas_i[name] = _agg_uda(agg, method, pa.num_freq, lo, cnt)
+            udas_i[name] = _agg_uda(agg, method, pa.kappa, pa.num_freq, lo,
+                                    cnt)
             vals_i[name] = values[name]
     return udas_i, vals_i
 
@@ -281,8 +286,12 @@ def _finalize_pass(node, pa, udas: dict, states: dict, gvalid, key_columns,
                      node.part)
     out = dict(valid=gvalid, keys=key_columns(list(pa.keys)),
                confidence=conf)
-    for name, _value, _agg, _method in pa.specs:
-        out[name] = udas[name].finalize(states[name])
+    for name, _value, agg, _method in pa.specs:
+        u, st = udas[name], states[name]
+        if agg in ("MIN", "MAX"):
+            out[name] = ops.minmax_runs(u, st)
+        else:
+            out[name] = u.finalize(st)
     return out
 
 
@@ -350,7 +359,7 @@ def compile_plan(root: Node, mesh=None, *,
                          acc(udas_i, t, vals_i, ids, mg,
                              cf_operands=cf_operands or None))
         for name in exact_names:            # full-range Finalize UDA
-            udas[name] = _agg_uda("SUM", "exact", pa.num_freq)
+            udas[name] = _agg_uda("SUM", "exact", pa.kappa, pa.num_freq)
         return _finalize_pass(
             node, pa, udas, states, gvalid,
             lambda cols: ops.group_key_columns(t, cols, ids, mg),

@@ -1,6 +1,7 @@
 """Synthetic TPC-H-like probabilistic workload (paper §VIII; port of
-``repro.db.tpch``): the generator, the plan constructors and Q1, Q3, Q6,
-Q18 (normal and ``method="exact"``) and Q20 in the paper's four modes:
+``repro.db.tpch``): the generator, the plan constructors, the MIN/MAX
+query ``q18_topk`` and Q1, Q3, Q6, Q18 (normal and ``method="exact"``) and
+Q20 in the paper's four modes:
 
     deterministic      the plain query (p ignored)
     confidence         P(result non-empty)        = AtLeastOne over the result
@@ -377,6 +378,34 @@ def q18(db: TPCH, mode: str = "aggregate", qty_threshold: int = 150,
     p_gt = ops.normal_greater(mu, var, torch.as_tensor(
         qty_threshold, dtype=mu.dtype, device=mu.device))
     return dict(valid=out["valid"], sum_qty=(mu, var), p_qualifies=p_gt)
+
+
+def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8,
+             plan_opts=None):
+    """Top-k variant of Q18: the per-order MAX(l_quantity) distribution
+    with the paper's §V-B.2 truncation bound exposed per group.
+
+    The MinMax UDA keeps the ``kappa`` best distinct values per group
+    (§V-B.1 masses are exact on that support); ``tail_mass`` is the
+    probability that a group's true MAX lies STRICTLY beyond the kept
+    support,
+
+        tail_mass_g = prod_{kept values} Q_j * (1 - prod_{evicted} (1-p)),
+
+    exactly 0 when kappa covered every distinct value.  Returns per-run
+    tensors (the flattened G*kappa support grid of
+    ``operators.minmax_runs``) plus the per-group ``p_empty``, ``p_tail``
+    (P(no kept value present)) and ``tail_mass``.
+    """
+    plan = GroupAgg(Scan("lineitem"), ("l_orderkey",), "l_quantity",
+                    "MAX", max_groups, kappa=kappa)
+    out = compile_plan(plan, **(plan_opts or {}))(db.tables())
+    mm = out["minmax"]
+    return dict(valid=out["valid"], keys=out["keys"],
+                run_group=mm["run_group"], run_value=mm["run_value"],
+                run_mass=mm["run_mass"], run_valid=mm["run_valid"],
+                p_empty=mm["p_empty"], p_tail=mm["p_tail"],
+                tail_mass=mm["tail_mass"])
 
 
 def q20(db: TPCH, mode: str = "aggregate", nation_name: int = 3,

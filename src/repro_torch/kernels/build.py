@@ -41,6 +41,8 @@ SIGNATURES = {
     # p, v, coef, piece_start, piece_end, group_first, partial, out,
     # n_pieces, num_groups, orders, stream
     "group_cumulant_sums_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
+    # a, b, c, na, nb, stream
+    "polymul_launch": [P, P, P, I, I, P],
 }
 
 _LIB: dict = {}

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the four CF / cumulant kernels (the port of
+"""Plain PyTorch versions of the five kernels (the port of
 ``repro.kernels.ref``).
 
 Each function computes exactly what its kernel computes, unblocked: a
-whole (frequency, tuple) or (order, tuple) tile and one reduction.  The
+whole (frequency, tuple) or (order, tuple) tile and one reduction, or
+for the polynomial product a loop over the shorter factor.  The
 kernel wrappers use them for CPU tensors, the tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each CUDA kernel against them on
 the card.
@@ -98,3 +99,17 @@ def group_cumulants_ref(probs, values, gids, num_groups: int,
     """Grouped partial cumulant sums s[g, j], (num_groups, orders)."""
     kappas, vpow = _cumulant_rows(probs, values.to(probs.dtype), orders)
     return segment_sum((kappas * vpow).T, gids, num_groups)
+
+
+def polymul_ref(a, b):
+    """Full linear convolution c[t] = sum_{i+j=t} a[i] b[j] (schoolbook),
+    straight from the definition: one shifted axpy per coefficient of the
+    shorter factor, in increasing order.  (Not ``conv1d``: cuDNN runs a
+    float32 convolution in TF32 by default.)"""
+    s, l = (a, b) if a.shape[0] <= b.shape[0] else (b, a)
+    c = torch.zeros((a.shape[0] + b.shape[0] - 1,),
+                    dtype=torch.result_type(a, b), device=a.device)
+    n = l.shape[0]
+    for u in range(s.shape[0]):
+        c[u:u + n] += s[u] * l
+    return c

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core.approx import _bernoulli_cumulant_polys
-from repro_torch.kernels import cumulants, group_cf, group_cumulants, pb_cf
+from repro_torch.kernels import (cumulants, group_cf, group_cumulants, pb_cf,
+                                 polymul)
 
 
 @pytest.fixture
@@ -75,3 +76,28 @@ def test_cuda_kernels_match_plain(cuda_device):
     got = group_cumulants.group_cumulant_sums(p, vf, g, num_groups=40)
     want = group_cumulants.group_cumulant_sums_plain(p, vf, g, 40)
     assert ((got - want).abs() / _abs_scale(p, vf, g, 40)).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_polymul_matches_plain(cuda_device):
+    """The polynomial-product kernel against its plain version in float64
+    on the card, relative to the per-output scale sum_u |a_u||b_{t-u}|
+    (float32 accumulation over at most 3000 terms: ~1e-6), bit-equal on a
+    rerun, and its launches counted."""
+    rng = np.random.default_rng(6)
+    polymul.polymul.launches = 0
+    for na, nb in ((1, 1), (128, 1024), (1001, 1001), (3000, 257)):
+        a = torch.tensor(rng.uniform(-1, 1, na), dtype=torch.float32,
+                         device=cuda_device)
+        b = torch.tensor(rng.uniform(0, 1, nb), dtype=torch.float32,
+                         device=cuda_device)
+        got = polymul.polymul(a, b)
+        assert torch.equal(got.view(torch.int32),
+                           polymul.polymul(a, b).view(torch.int32))
+        want = polymul.polymul_plain(a.double(), b.double())
+        scale = polymul.polymul_plain(a.double().abs(), b.double())
+        assert float(((got.double() - want).abs()
+                      / scale.clamp(min=1e-30)).max()) < 2e-5
+    assert polymul.polymul.launches == 8
+    with pytest.raises(ValueError):
+        polymul.polymul(a.double(), b.double())

@@ -34,4 +34,5 @@ def test_no_jax_or_reference_imports(path):
 def test_guard_sees_the_whole_package():
     names = {p.name for p in FILES}
     assert {"uda.py", "plans.py", "physical.py", "tpch.py", "pb_cf.py",
-            "group_cf.py", "chip_smoke.py"} <= names
+            "group_cf.py", "pgf.py", "poisson_binomial.py", "polymul.py",
+            "chip_smoke.py"} <= names

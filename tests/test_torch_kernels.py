@@ -1,4 +1,4 @@
-"""The port's four kernel modules on the CPU: each plain PyTorch version
+"""The port's five kernel modules on the CPU: each plain PyTorch version
 against the JAX package's Pallas kernel (interpret mode, as
 tests/test_kernels.py runs it) and against ``repro.kernels.ref``, with
 the bounds those tests use; the split-modmult operands, the piece table
@@ -15,9 +15,10 @@ from repro.kernels import cumulants as jcum
 from repro.kernels import group_cf as jgcf
 from repro.kernels import group_cumulants as jgcum
 from repro.kernels import pb_cf as jcf
+from repro.kernels import polymul as jpm
 from repro.kernels import ref as jref
 from repro_torch.kernels import cumulants, group_cf, group_cumulants, ops
-from repro_torch.kernels import pb_cf, ref, segments
+from repro_torch.kernels import pb_cf, polymul, ref, segments
 
 
 def _cf_inputs(rng, n, num_groups=1, vmax=50):
@@ -210,3 +211,33 @@ def test_dispatch_guards():
                                             orders=3),
         ref.group_cumulants_ref(big, v.float(), g, 2, 3))
     assert all(n == 0 for n in ops.launches().values())
+
+
+@pytest.mark.parametrize("na,nb", [(128, 128), (130, 257), (300, 200)])
+def test_polymul_plain_matches_pallas(rng, na, nb):
+    """float32, the bounds of tests/test_kernels.py: rtol=1e-5, atol=1e-4."""
+    a = rng.uniform(0, 1, na).astype(np.float32)
+    b = rng.uniform(0, 1, nb).astype(np.float32)
+    ck = jpm.polymul(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    cr = jref.polymul_ref(jnp.asarray(a), jnp.asarray(b))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for got in (polymul.polymul(ta, tb), polymul.polymul_plain(ta, tb),
+                polymul.polymul_plain(tb, ta)):
+        assert got.dtype == torch.float32 and got.shape == (na + nb - 1,)
+        for want in (ck, cr):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("na,nb,dtype,eligible", [
+    (128, 128, torch.float32, True), (1024, 128, torch.float32, True),
+    (127, 1024, torch.float32, False), (128, 128, torch.float64, False),
+    (128, 128, None, False)])
+def test_polymul_eligible_guard(na, nb, dtype, eligible):
+    """Float32 factors of at least MIN_KERNEL_DEGREE coefficients (the JAX
+    guard of ops.py:79-80); a float64 second factor is not eligible."""
+    a = torch.rand(na, dtype=dtype or torch.float32)
+    b = torch.rand(nb, dtype=dtype or torch.float64)
+    assert ops.MIN_KERNEL_DEGREE == 128
+    assert ops.polymul_eligible(a, b) is eligible
+    assert ops.polymul_eligible(b, a) is eligible
