@@ -12,12 +12,19 @@ Five phases, each of which raises on a failed check (exit code != 0):
    at the shapes the two paths give it (one canonical chunk of 750,000
    tuples of the TPC-H SF1 path; the polynomial products of the value
    layer, and larger ones).  Each kernel gets two times: its own
-   __global__ launches alone (``ms``, from the profiler's kernel rows) and
-   its wrapper as the path calls it (``wrapper_ms``, CUDA events around
-   whole calls, set-up included); the plain version and, where one
-   PyTorch call computes the same function, that call (``library_ms``)
-   are timed with CUDA events.  Each kernel's bound is bytes over
-   3.35 TB/s or operations over 67 TFLOP/s float32, whichever is larger.
+   __global__ launches alone (``ms``, from the profiler's kernel rows;
+   for the two redesigned CF kernels every device operation of the
+   wrapper call) and its wrapper as the path calls it (``wrapper_ms``,
+   CUDA events around whole calls, set-up included); the plain version
+   and, where one PyTorch call computes the same function, that call
+   (``library_ms``) are timed with CUDA events.  Each kernel's bound is
+   bytes over 3.35 TB/s or operations over 67 TFLOP/s float32, whichever
+   is larger.  The CF kernels also run with every tuple live, with
+   bank-conflicting values, at the value layer's COUNT shapes (odd N,
+   N = 1, 2; also held against float64 terms) and over skewed groups,
+   each checked, rerun bit-equal and timed, and their times print beside
+   those of their first design; logcf also runs with its twiddle table in
+   device memory instead of shared memory.
 3. TPC-H path: generate the SF1 tables on the card, reset the kernels'
    launch counters, run Q1/Q3/Q6/Q18/Q20 in all four modes (plus Q6 with
    ``num_freq=4096`` and Q18 ``method="exact"``) through the port's entry
@@ -83,20 +90,32 @@ SOURCES = {
     "polymul": "src/repro_torch/kernels/csrc/polymul.cu",
 }
 #: the __global__ functions each kernel's C entry launches, and how many
-#: launches one wrapper call makes (csrc/*.cu).
+#: launches one wrapper call makes (csrc/*.cu).  group_logcf launches
+#: cf_partial only where a group has more than SHORT_MAX tuples: 2 at the
+#: Q18 shape, 3 with long groups.
 GLOBALS = {
-    "logcf": (("logcf_partial", "rows_sum"), 3),
-    "group_logcf": (("group_logcf_partial", "segment_rows_sum"), 3),
+    "logcf": (("cf_twiddles", "cf_partial", "cf_mirror_sum"), 3),
+    "group_logcf": (("cf_twiddles", "cf_partial", "group_logcf_direct"), 2),
     "cumulant_sums": (("cumulants_partial", "rows_sum"), 2),
     "group_cumulant_sums": (("group_cumulants_partial", "segment_rows_sum"),
                             2),
     "polymul": (("polymul_tile",), 1),
 }
-#: float ops per (frequency, tuple) pair of a CF term: phase scale, q,
-#: re (FMA = 2), im, |.|^2 (3), clamp, log, 0.5*, atan2, sin, cos and the
-#: two accumulating adds; a transcendental counts as one op, so the bound
-#: is a lower bound.
-CF_OPS_PER_PAIR = 16
+#: the two kernels redesigned since their first CUDA design: their ``ms``
+#: counts every device operation of a wrapper call (the wrapper's own
+#: casts included).  Values: the first design's kernel ms and wrapper ms
+#: on the same shapes (PERF.md's kernel table, "earlier" column), measured
+#: on EARLIER_CARD; printed beside this run's times, never in the kernels
+#: line.
+REDESIGNED = {"logcf": (21.966, 22.129), "group_logcf": (1.645, 2.177)}
+EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+#: float ops per (frequency, tuple) pair of a CF term as the kernels form
+#: it: re = q + p cos (FMA = 2), im = p sin, |.|^2 (FMA + multiply = 3),
+#: the clamp, logf, atan2f and the two accumulating adds.  The phase is
+#: integer work and the twiddle a table read; 1 - p is formed once per
+#: tuple and the halving once per output.  A transcendental counts as one
+#: op, so the bound is a lower bound.
+CF_OPS_PER_PAIR = 11
 
 
 def cumulant_ops_per_tuple(orders: int) -> int:
@@ -131,15 +150,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_ms(name: str, fn, reps: int) -> tuple:
-    """Device ms per call of ``fn`` spent in kernel ``name``'s own
-    __global__ launches, from the profiler's kernel rows: the wrapper's
-    set-up (casts, sorts, the piece table and its host sync) is left out.
-    Returns (ms, launches seen, launches expected)."""
+def kernel_ms(name: str, fn, reps: int, per_call: int | None = None
+              ) -> tuple:
+    """Device ms per call of ``fn`` from the profiler's kernel rows: in
+    kernel ``name``'s own __global__ launches, and in every device
+    operation of the call (the wrapper's set-up too).  Returns (own ms,
+    all ms, launches seen, launches expected)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    names, per_call = GLOBALS[name]
+    names, default_per_call = GLOBALS[name]
     pattern = re.compile(r"(?<!\w)(" + "|".join(names) + r")(?!\w)")
     fn()
     torch.cuda.synchronize()
@@ -148,22 +168,31 @@ def kernel_ms(name: str, fn, reps: int) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, seen = 0.0, 0
+    us, all_us, seen = 0.0, 0.0, 0
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and pattern.search(e.key):
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        all_us += t
+        if pattern.search(e.key):
+            us += t
             seen += e.count
     check(seen > 0, f"{name}: the profiler saw none of {names}")
-    return us / 1e3 / reps, seen, reps * per_call
+    return (us / 1e3 / reps, all_us / 1e3 / reps, seen,
+            reps * (per_call or default_per_call))
 
 
-def timings(name: str, fn, reps: int) -> dict:
-    """The kernel's own device ms (``ms``) and the wrapper's ms as the
-    main path calls it (``wrapper_ms``, CUDA events around whole calls)."""
-    ms, seen, expected = kernel_ms(name, fn, reps)
-    return dict(ms=ms, wrapper_ms=cuda_ms(fn, reps),
+def timings(name: str, fn, reps: int, per_call: int | None = None) -> dict:
+    """The kernel's device ms (``ms``: its own __global__ launches, or for
+    a REDESIGNED kernel every device operation of the wrapper call; both
+    kept as ``own_ms`` and ``device_ms``) and the wrapper's ms as the main
+    path calls it (``wrapper_ms``, CUDA events around whole calls)."""
+    own, dev_ms, seen, expected = kernel_ms(name, fn, reps, per_call)
+    check(name not in REDESIGNED or seen == expected,
+          f"{name}: {seen} kernel launches, expected {expected}")
+    return dict(ms=dev_ms if name in REDESIGNED else own, own_ms=own,
+                device_ms=dev_ms, wrapper_ms=cuda_ms(fn, reps),
                 profiled_launches=seen, expected_launches=expected)
 
 
@@ -185,6 +214,134 @@ def check(cond: bool, what: str) -> None:
 
 
 # ----------------------------------------------------------------- kernels
+def cf_plain_sums(p, v, k, num_freq) -> tuple:
+    """The plain terms of a scalar CF at frequencies ``k`` summed in
+    float64: (log-abs, angle, sum |log-abs term|, sum |angle term|)."""
+    from repro_torch.kernels import ref
+    tl, ta = ref._cf_terms(p[None, :], v[None, :], k[:, None].double(),
+                           num_freq)
+    tl, ta = tl.double(), ta.double()
+    return tl.sum(-1), ta.sum(-1), tl.abs().sum(-1), ta.abs().sum(-1)
+
+
+def cf_window_errors(la, an, p, v, num_freq, starts, width) -> tuple:
+    """Max abs errors (log-abs, angle mod 2 pi) of a scalar CF on the
+    frequency windows [s, s + width) against the plain terms summed in
+    float64, and the max error over sum |term| (at least 1)."""
+    import torch
+    err_la, err_an, rel = 0.0, 0.0, 0.0
+    for lo in starts:
+        k = lo + torch.arange(width, device=p.device)
+        w_la, w_an, s_la, s_an = cf_plain_sums(p, v, k, num_freq)
+        e_la = (la[k].double() - w_la).abs()
+        e_an = wrapped_angle_err(an[k], w_an)
+        err_la = max(err_la, float(e_la.max()))
+        err_an = max(err_an, float(e_an.max()))
+        rel = max(rel, float((e_la / s_la.clamp(min=1)).max()),
+                  float((e_an / s_an.clamp(min=1)).max()))
+    return err_la, err_an, rel
+
+
+def against_earlier(name: str, t: dict) -> str:
+    ms, wrapper_ms = REDESIGNED[name]
+    return (f"{name} redesigned: kernel {t['ms']:.4f} ms, wrapper "
+            f"{t['wrapper_ms']:.4f} ms on {card_line()}; first design: "
+            f"kernel {ms} ms, wrapper {wrapper_ms} ms on {EARLIER_CARD}")
+
+
+def table_ab(fn, reps: int) -> dict:
+    """Device ms of a logcf call (every device op, as ``ms``) with the
+    twiddle table in shared memory, as the wrapper places it up to
+    ``pb_cf.DIRECT_TABLE_MAX`` entries, and in device memory, the path
+    above it; run shared, device, device, shared and averaged per side."""
+    from repro_torch.kernels import pb_cf
+    keep = pb_cf.DIRECT_TABLE_MAX
+    got = {"shared_ms": [], "device_ms": []}
+    try:
+        for side in ("shared_ms", "device_ms", "device_ms", "shared_ms"):
+            pb_cf.DIRECT_TABLE_MAX = keep if side == "shared_ms" else 0
+            got[side].append(kernel_ms("logcf", fn, reps)[1])
+    finally:
+        pb_cf.DIRECT_TABLE_MAX = keep
+    out = {k: sum(v) / len(v) for k, v in got.items()}
+    out["device_over_shared"] = out["device_ms"] / out["shared_ms"]
+    return out
+
+
+def print_table_ab(label: str, ab: dict) -> None:
+    print(f"{label} twiddle table: shared memory {ab['shared_ms']:.4f} ms, "
+          f"device memory {ab['device_ms']:.4f} ms (x"
+          f"{ab['device_over_shared']:.3f})")
+
+
+def group_skew_cases(put, dev) -> dict:
+    """group_logcf beyond Q18's shape: a skewed chunk (three groups of
+    100,000 tuples, groups of SHORT_MAX and SHORT_MAX + 1, of 1, 2 and 4
+    tuples, 1.3M empty groups; the window ending at N - 1), the two
+    extremes -- 8 groups of 100,000 tuples, and 1.5M groups of 1-4 tuples
+    -- and 1.5M empty groups (the output pass alone), each against the
+    plain terms summed in float64 per group (tolerance 2e-5 of sum
+    |term|), bit-equal on a rerun, timed with hoisted operands (cf_partial
+    runs where a group is longer than SHORT_MAX)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import group_cf, ref
+    rng = np.random.default_rng(2)
+    short = group_cf.SHORT_MAX
+    mixed = np.zeros(Q18_GROUPS, np.int64)
+    slots = rng.permutation(Q18_GROUPS)
+    at = 0
+    for size, count in ((100_000, 3), (short, 1000), (short + 1, 1000),
+                        (1, 100_000), (2, 50_000), (4, 37_500)):
+        mixed[slots[at:at + count]] = size
+        at += count
+    cases = (("skewed", mixed, 256, 256 - 89, 89),
+             ("8 x 100,000", np.full(8, 100_000), 256, 89, 89),
+             ("1.5M x 1-4", rng.integers(1, 5, Q18_GROUPS), 256, 89, 89),
+             ("no tuples", np.zeros(Q18_GROUPS, np.int64), 256, 89, 89))
+    out = {}
+    for label, sizes, nf, lo, cnt in cases:
+        G = sizes.shape[0]
+        gids = np.repeat(np.arange(G), sizes)
+        rng.shuffle(gids)
+        n = gids.shape[0]
+        p = put(rng.uniform(0.0, 1.0, n), torch.float32)
+        v = put(rng.integers(1, 51, n), torch.int64)
+        g = put(gids, torch.int64)
+        ops_ = group_cf.presort_operands(p, v, g, nf, G)
+        run = lambda: group_cf.group_logcf(
+            p, v, g, num_groups=G, num_freq=nf, freq_lo=lo, freq_cnt=cnt,
+            operands=ops_)
+        long_groups = bool((sizes > short).any())
+        t = timings("group_logcf", run, 5, per_call=3 if long_groups else 2)
+        la, an = run()
+        check(bit_equal((la, an), run()),
+              f"group_logcf {label}: rerun is not bit-equal")
+        kk = lo + torch.arange(cnt, dtype=torch.float64, device=dev)
+        tl, ta = ref._cf_terms(p[:, None], v[:, None], kk[None, :], nf)
+        rel = 0.0
+        for got, terms, angle in ((la, tl, False), (an, ta, True)):
+            terms = terms.double()
+            want = ref.segment_sum(terms, g, G)
+            scale = ref.segment_sum(terms.abs(), g, G).clamp(min=1)
+            err = (wrapped_angle_err(got, want) if angle
+                   else (got.double() - want).abs())
+            rel = max(rel, float((err / scale).max()))
+            del terms, want, scale, err
+        del tl, ta
+        b = bound_ms(n * 12 + 2 * G * cnt * 4, n * cnt * CF_OPS_PER_PAIR)
+        out[label] = dict(n=n, groups=G, window=[lo, lo + cnt], ms=t["ms"],
+                          wrapper_ms=t["wrapper_ms"], bound_ms=b[0],
+                          bound_by=b[1], max_err_over_sum_abs=rel)
+        print(f"group_logcf {label}: n={n} G={G} N={nf} window=[{lo},"
+              f"{lo + cnt}) kernel {t['ms']:.4f} ms, wrapper "
+              f"{t['wrapper_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); max "
+              f"err / sum|term| {rel:.3e} (tolerance 2e-5); bit-equal rerun")
+        check(rel <= 2e-5, f"group_logcf {label} disagrees: {rel}")
+        del p, v, g, ops_, la, an
+    return out
+
+
 def kernel_phase(dev, rng) -> dict:
     """Each kernel against its plain version at the SF1 path's shapes."""
     import numpy as np
@@ -207,39 +364,119 @@ def kernel_phase(dev, rng) -> dict:
 
     # 1. logcf at Q6's shape: N = 4096, one chunk of 750,000 tuples.  The
     # plain (N, n) tile does not fit, so the timed launch is held against
-    # the plain terms on two frequency windows at full n (terms as the
-    # plain version computes them, summed in float64); the plain version
-    # is timed on a tuple prefix.
+    # the plain terms on three frequency windows at full n -- both ends and
+    # the seam of the mirrored half around N/2 (terms as the plain version
+    # computes them, summed in float64); the plain version is timed on a
+    # tuple prefix.
     n, nf, prefix, win = CHUNK, 4096, 65_536, 128
+    half = nf // 2 + 1
     p = probs(n, 0.05)
     v = put(rng.integers(0, 162, n), torch.int64)
     run = lambda: pb_cf.logcf(p, v, num_freq=nf)
     t = timings("logcf", run, 10)
     la, an = run()
-    err_la, err_an, rel = 0.0, 0.0, 0.0
-    for lo in (0, nf - win):
-        k = lo + torch.arange(win, dtype=torch.float64, device=dev)
-        tl, ta = ref._cf_terms(p[None, :], v[None, :], k[:, None], nf)
-        e_la = (la[lo:lo + win] - tl.double().sum(-1)).abs()
-        e_an = wrapped_angle_err(an[lo:lo + win], ta.double().sum(-1))
-        err_la = max(err_la, float(e_la.max()))
-        err_an = max(err_an, float(e_an.max()))
-        rel = max(rel,
-                  float((e_la / tl.double().abs().sum(-1).clamp(min=1)).max()),
-                  float((e_an / ta.double().abs().sum(-1).clamp(min=1)).max()))
-        del tl, ta
+    check(bit_equal((la, an), run()), "logcf: rerun is not bit-equal")
+    windows = (0, nf // 2 - win // 2, nf - win)
+    err_la, err_an, rel = cf_window_errors(la, an, p, v, nf, windows, win)
     plain_ms = cuda_ms(lambda: pb_cf.logcf_plain(p[:prefix], v[:prefix], nf),
                        3)
     ms_prefix = kernel_ms("logcf", lambda: pb_cf.logcf(
-        p[:prefix], v[:prefix], num_freq=nf), 10)[0]
-    b = bound_ms(n * (4 + 8) + 2 * nf * 4, n * nf * CF_OPS_PER_PAIR)
-    print(f"logcf: n={n} N={nf} kernel {t['ms']:.4f} ms, wrapper "
-          f"{t['wrapper_ms']:.4f} ms; vs plain on frequencies [0,{win}) and "
-          f"[{nf - win},{nf}) at full n: max err {err_la:.3e} (log-abs) "
-          f"{err_an:.3e} (angle mod 2pi), max err / sum|term| {rel:.3e} "
-          f"(tolerance 2e-5); on the prefix n={prefix}: kernel "
-          f"{ms_prefix:.4f} ms vs plain {plain_ms:.4f} ms")
+        p[:prefix], v[:prefix], num_freq=nf), 10)[1]
+    # The least work: the live tuples (p != 0; the kernel skips the rest
+    # bit-identically) at the N/2 + 1 frequencies it computes.
+    live = int((p != 0).sum())
+    b = bound_ms(n * (4 + 4) + 2 * nf * 4, live * half * CF_OPS_PER_PAIR)
+    print(f"logcf: n={n} N={nf} ({live} live tuples) kernel {t['ms']:.4f} "
+          f"ms (own launches {t['own_ms']:.4f} ms), wrapper "
+          f"{t['wrapper_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); vs "
+          f"plain on frequency windows {windows} x {win} at full n: max err "
+          f"{err_la:.3e} (log-abs) {err_an:.3e} (angle mod 2pi), max err / "
+          f"sum|term| {rel:.3e} (tolerance 2e-5); on the prefix "
+          f"n={prefix}: kernel {ms_prefix:.4f} ms vs plain {plain_ms:.4f} "
+          "ms; bit-equal rerun")
     check(rel <= 2e-5, f"logcf disagrees with its plain version: {rel}")
+    ab = table_ab(run, 10)
+    print_table_ab(f"logcf n={n} N={nf}", ab)
+    # The same shape with every tuple live, and with values that are all
+    # multiples of 64 (every table read of a warp conflicts 16 ways).
+    rng2 = np.random.default_rng(1)
+    variants = {}
+    p_all = put(rng2.uniform(1e-6, 1.0, n), torch.float32)
+    v64 = put(rng2.integers(0, 64, n) * 64, torch.int64)
+    for label, pv, vv in (("all live", p_all, v), ("values 64 apart", p_all,
+                                                   v64)):
+        tv = timings("logcf", lambda: pb_cf.logcf(pv, vv, num_freq=nf), 5)
+        la_v, an_v = pb_cf.logcf(pv, vv, num_freq=nf)
+        errs = cf_window_errors(la_v, an_v, pv, vv, nf, windows, win)
+        bv = bound_ms(n * (4 + 4) + 2 * nf * 4, n * half * CF_OPS_PER_PAIR)
+        abv = table_ab(lambda: pb_cf.logcf(pv, vv, num_freq=nf), 5)
+        print_table_ab(f"logcf {label}", abv)
+        variants[label] = dict(ms=tv["ms"], wrapper_ms=tv["wrapper_ms"],
+                               bound_ms=bv[0], bound_by=bv[1],
+                               max_err_over_sum_abs=errs[2],
+                               twiddle_table=abv)
+        print(f"logcf {label}: n={n} N={nf} kernel {tv['ms']:.4f} ms, "
+              f"wrapper {tv['wrapper_ms']:.4f} ms, bound {bv[0]:.4f} ms "
+              f"({bv[1]}); max err / sum|term| {errs[2]:.3e} (tolerance "
+              "2e-5)")
+        check(errs[2] <= 2e-5, f"logcf {label} disagrees: {errs[2]}")
+    del p_all, v64, la_v, an_v
+    # The value layer's COUNTs (odd N = 1001 and 401) and N = 1, 2.  The
+    # kernel computes k <= N/2 and mirrors the rest, so: the computed half
+    # against the plain version (tolerance 2e-5 of sum|term|), the mirror
+    # identity bit for bit, and every frequency of the kernel against a
+    # float64 witness (the terms in float64: p, angle and trig; tolerance
+    # 2e-5 of sum|term|).  The mirrored half against the plain version and
+    # the plain version against the witness are reported: the plain
+    # version rounds the angle to float32 at k and at N - k separately, so
+    # it is not exactly conjugate-symmetric.
+    small = {}
+    for n3, nf3 in ((1000, 1001), (400, 401), (1000, 2), (1000, 1)):
+        p3 = put(rng2.uniform(0.0, 1.0, n3), torch.float32)
+        v3 = torch.ones(n3, dtype=torch.int64, device=dev)
+        la3, an3 = pb_cf.logcf(p3, v3, num_freq=nf3)
+        check(bit_equal((la3, an3), pb_cf.logcf(p3, v3, num_freq=nf3)),
+              f"logcf N={nf3}: rerun is not bit-equal")
+        h3 = nf3 // 2 + 1
+        k3 = torch.arange(nf3, device=dev)
+        w_la, w_an, s_la, s_an = cf_plain_sums(p3, v3, k3, nf3)
+        s_la, s_an = s_la.clamp(min=1), s_an.clamp(min=1)
+        rel3 = torch.maximum((la3.double() - w_la).abs() / s_la,
+                             wrapped_angle_err(an3, w_an) / s_an)
+        e3 = float(rel3[:h3].max())
+        mk = k3[h3:]
+        mirror_ok = bool(torch.equal(la3[mk], la3[nf3 - mk])
+                         and torch.equal(an3[mk], -an3[nf3 - mk]))
+        em = float(rel3[h3:].max()) if nf3 > h3 else 0.0
+        x_la, x_an, x_sla, x_san = cf_plain_sums(p3.double(), v3, k3, nf3)
+        x_sla, x_san = x_sla.clamp(min=1), x_san.clamp(min=1)
+
+        def vs_witness(got_la, got_an):
+            return torch.maximum((got_la.double() - x_la).abs() / x_sla,
+                                 wrapped_angle_err(got_an, x_an) / x_san)
+        kx = vs_witness(la3, an3)
+        px = vs_witness(w_la, w_an)
+        e64, p64 = float(kx.max()), float(px.max())
+        km = float(kx[h3:].max()) if nf3 > h3 else 0.0
+        pm = float(px[h3:].max()) if nf3 > h3 else 0.0
+        t3 = timings("logcf", lambda: pb_cf.logcf(p3, v3, num_freq=nf3), 20)
+        small[f"n={n3} N={nf3}"] = dict(
+            ms=t3["ms"], wrapper_ms=t3["wrapper_ms"],
+            max_err_over_sum_abs=e3, mirrored_max_err_over_sum_abs=em,
+            float64_max_err_over_sum_abs=e64,
+            float64_mirrored_max_err_over_sum_abs=km,
+            plain_float64_max_err_over_sum_abs=p64,
+            plain_float64_mirrored_max_err_over_sum_abs=pm)
+        print(f"logcf COUNT n={n3} N={nf3}: kernel {t3['ms']:.4f} ms, "
+              f"wrapper {t3['wrapper_ms']:.4f} ms; k <= N/2 vs plain: max "
+              f"err / sum|term| {e3:.3e} (tolerance 2e-5); mirror identity "
+              f"{'exact' if mirror_ok else 'BROKEN'}; every k vs float64 "
+              f"{e64:.3e} (tolerance 2e-5); reported: k > N/2 vs plain "
+              f"{em:.3e}, k > N/2 vs float64 {km:.3e} (plain {pm:.3e}), "
+              f"plain vs float64 at every k {p64:.3e}; bit-equal rerun")
+        check(e3 <= 2e-5, f"logcf N={nf3} disagrees: {e3}")
+        check(mirror_ok, f"logcf N={nf3}: mirror identity broken")
+        check(e64 <= 2e-5, f"logcf N={nf3} disagrees with float64: {e64}")
     # Phase exactness at N = 2^20 with values up to N - 1.
     n2, nf2 = 256, 1 << 20
     p2 = put(rng.uniform(0.01, 0.99, n2), torch.float32)
@@ -252,13 +489,16 @@ def kernel_phase(dev, rng) -> dict:
     print(f"logcf phase exactness: n={n2} N=2^20 max err {e2:.3e} "
           "(tolerance 2e-3)")
     check(e2 <= 2e-3, f"logcf phase at N=2^20: {e2}")
+    print(against_earlier("logcf", t))
     rows["logcf"] = dict(
         max_abs_err=max(err_la, err_an, e2), **t, plain_ms=plain_ms,
-        bound_ms=b[0], bound_by=b[1], library_ms=None, shape=f"n={n} N={nf}",
-        compare_shape=(f"n={n} N={nf} frequencies [0,{win}) and "
-                       f"[{nf - win},{nf}); n={n2} N=2^20"),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        shape=f"n={n} N={nf} ({live} live)",
+        compare_shape=(f"n={n} N={nf} frequency windows {windows} x {win}; "
+                       f"n={n2} N=2^20; every frequency of the COUNTs"),
         plain_shape=f"n={prefix} N={nf}", prefix_ms=ms_prefix,
-        max_err_over_sum_abs=rel)
+        max_err_over_sum_abs=rel, variants=variants, value_layer=small,
+        twiddle_table=ab)
     del p, v, la, an
 
     # 2. group_logcf at Q18's shape: 187,500 orders x 4 rows per chunk,
@@ -269,12 +509,13 @@ def kernel_phase(dev, rng) -> dict:
     # chunk 2 of the canonical grid: orders [375000, 562500)
     g = put(np.repeat(np.arange(n // 4) + min(2 * (n // 4), G - n // 4), 4),
             torch.int64)
-    ops_ = group_cf.presort_operands(p, v, g, nf)
+    ops_ = group_cf.presort_operands(p, v, g, nf, G)
     run = lambda: group_cf.group_logcf(p, v, g, num_groups=G, num_freq=nf,
                                        freq_lo=lo, freq_cnt=cnt,
                                        operands=ops_)
     t = timings("group_logcf", run, 10)      # operands hoisted, as the path
     la, an = run()
+    check(bit_equal((la, an), run()), "group_logcf: rerun is not bit-equal")
     kk = lo + torch.arange(cnt, dtype=torch.float64, device=dev)
     tl, ta = ref._cf_terms(p[:, None], v[:, None], kk[None, :], nf)
     want_la = ref.segment_sum(tl, g, G)
@@ -287,17 +528,20 @@ def kernel_phase(dev, rng) -> dict:
     del tl, ta, want_la, want_an, sc_la, sc_an
     plain_ms = cuda_ms(lambda: group_cf.group_logcf_plain(
         p, v, g, G, nf, lo, cnt), 3)
-    b = bound_ms(n * 16 + 2 * G * cnt * 4, n * cnt * CF_OPS_PER_PAIR)
+    b = bound_ms(n * 12 + 2 * G * cnt * 4, n * cnt * CF_OPS_PER_PAIR)
     print(f"group_logcf: n={n} G={G} N={nf} window=[{lo},{lo + cnt}) "
           f"kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms vs "
-          f"plain {plain_ms:.4f} ms; max err {float(err_la.max()):.3e} / "
-          f"{float(err_an.max()):.3e}, max err / sum|term| {rel:.3e} "
-          "(tolerance 2e-5)")
+          f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); max err "
+          f"{float(err_la.max()):.3e} / {float(err_an.max()):.3e}, max err / "
+          f"sum|term| {rel:.3e} (tolerance 2e-5); bit-equal rerun")
     check(rel <= 2e-5, f"group_logcf disagrees with its plain version: {rel}")
+    skew = group_skew_cases(put, dev)
+    print(against_earlier("group_logcf", t))
     rows["group_logcf"] = dict(
         max_abs_err=max(float(err_la.max()), float(err_an.max())), **t,
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
-        shape=f"n={n} G={G} N={nf} cnt={cnt}", max_err_over_sum_abs=rel)
+        shape=f"n={n} G={G} N={nf} cnt={cnt}", max_err_over_sum_abs=rel,
+        skew=skew)
     del p, v, g, ops_, la, an
 
     # 3./4. cumulants: Q6's scalar rider and Q3's / Q1's grouped riders,

@@ -712,7 +712,8 @@ def cf_chunk_operands(num_freq: int, probs, values, gids, *,
     """Pre-sorted per-chunk grouped-CF kernel operands for an exact-CF
     aggregation, or None when the kernel would not be dispatched.  The
     planner calls this once per aggregation pass and threads the result
-    through every frequency slab, so the argsort runs once."""
+    through every frequency slab, so the argsort and the group tables
+    (with their one host sync per chunk) are built once."""
     from ..kernels import group_cf
     n = probs.shape[0]
     if n % num_chunks:
@@ -730,7 +731,8 @@ def cf_chunk_operands(num_freq: int, probs, values, gids, *,
          if gids is None else gids)
     return [group_cf.presort_operands(probs[i * csz:(i + 1) * csz],
                                       vals[i * csz:(i + 1) * csz],
-                                      g[i * csz:(i + 1) * csz], num_freq)
+                                      g[i * csz:(i + 1) * csz], num_freq,
+                                      max_groups)
             for i in range(num_chunks)]
 
 

@@ -24,18 +24,19 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 #: C entry points and their argument types (pointers and the stream as
-#: c_void_p, sizes as c_int); every entry returns cudaGetLastError().
+#: c_void_p, sizes as c_int, the Barrett magic as c_uint); every entry
+#: returns cudaGetLastError().
 SIGNATURES = {
-    # p, a, a2, partial_la, partial_an, la, an, n, num_freq, shift,
-    # splits, stream
-    "logcf_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
-    # p, a, a2, piece_start, piece_end, group_first, partial_la,
-    # partial_an, la, an, n_pieces, num_groups, num_freq, shift, freq_lo,
-    # freq_cnt, stream
-    "group_logcf_launch": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                           P],
+    # p, a, a2, twiddles, partial_la, partial_an, la, an, n, num_freq,
+    # shift, magic, smem_table, splits, stream
+    "logcf_launch": [P, P, P, P, P, P, P, P, I, I, I, U, I, I, P],
+    # p, a, a2, bounds, piece_first, piece_start, piece_end, twiddles,
+    # partial_la, partial_an, la, an, n_pieces, num_groups, num_freq,
+    # shift, magic, short_max, freq_lo, freq_cnt, stream
+    "group_logcf_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                           U, I, I, I, P],
     # p, v, coef, partial, out, n, orders, stream
     "cumulant_sums_launch": [P, P, P, P, P, I, I, P],
     # p, v, coef, piece_start, piece_end, group_first, partial, out,

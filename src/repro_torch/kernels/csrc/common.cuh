@@ -1,9 +1,10 @@
-// Device helpers shared by the four CF / cumulant kernels of the port.
+// Device helpers shared by the two cumulant kernels of the port (the CF
+// kernels' own are in cf.cuh).
 //
-// Everything here is float32 with IEEE transcendentals (no fast math):
-// sincosf, logf and atan2f.  Sums run in a fixed order in every kernel --
-// one thread's sequential loop, a fixed shared-memory tree, then a
-// row-ordered second pass -- so a launch gives the same bits every run.
+// Everything here is float32 (no fast math).  Sums run in a fixed order in
+// every kernel -- one thread's sequential loop, a fixed shared-memory
+// tree, then a row-ordered second pass -- so a launch gives the same bits
+// every run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,25 +12,6 @@
 namespace {
 
 constexpr int kMaxOrder = 12;  // repro_torch.core.approx.MAX_ORDER
-
-// (k * a) mod n, exact for n <= 2^20, by the int32 split-modmult of the
-// TPU kernels: k = k_hi * 2^shift + k_lo and a2 = (a << shift) mod n, so
-// both products stay below 2^31.
-__device__ __forceinline__ int modmult_phase(int k_hi, int k_lo, int a,
-                                             int a2, int n) {
-  return ((k_hi * a2) % n + (k_lo * a) % n) % n;
-}
-
-// log-abs and angle of (1 - p) + p * exp(i * theta), theta = phase * w.
-__device__ __forceinline__ void cf_term(float p, int phase, float w,
-                                        float& la, float& an) {
-  float s, c;
-  sincosf(static_cast<float>(phase) * w, &s, &c);
-  float re = (1.0f - p) + p * c;
-  float im = p * s;
-  la = 0.5f * logf(fmaxf(re * re + im * im, 1e-30f));
-  an = atan2f(im, re);
-}
 
 // acc[j] += kappa_{j+1}(p) * v^{j+1} for j < orders: one Horner sweep over
 // the (orders, orders + 1) coefficient table coef (row j = kappa_{j+1},

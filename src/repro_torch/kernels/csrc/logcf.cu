@@ -5,80 +5,71 @@
 //   an[k] = sum_i arg(q_i + p_i w^{k a_i}),   w = exp(2 pi i / N), k < N
 //
 // Bound on the H100: operations.  Every (frequency, tuple) pair costs a
-// sincosf, a logf and an atan2f plus ~12 float ops, against 8 input bytes
-// per tuple and 8 output bytes per frequency; at the Q6 shape (N = 4096,
-// 750,000 tuples per canonical chunk) that is ~3e9 pairs on 6 MB.
+// logf and an atan2f plus 9 float ops, against 8 input bytes per tuple
+// (p and a) and 8 output bytes per frequency; at the Q6 shape (N = 4096,
+// 750,000 tuples per canonical chunk) that is ~1.5e9 pairs on 6 MB.
 //
-// Design: one thread per frequency k, 256 frequencies per block.  The
-// tuple column is cut into `splits` contiguous ranges (grid.y); a block
-// stages 1024 tuples of p, a and a2 at a time in shared memory, so each
-// tuple byte is read from memory once per block and every thread streams
-// the same tile.  Each block writes a partial (split, k) sum; rows_sum
-// adds the splits in order.  No atomics: the result is the same bits on
-// every run.  The phase is integer-exact through the split-modmult
-// (exact for N <= 2^20, the dispatch guard).
-#include "common.cuh"
+// Design (cf.cuh has the phase, the twiddle table and the partial kernel):
+//  - Conjugate symmetry: for real p the CF at N - k is the conjugate of
+//    the CF at k, so only k in [0, N/2] is computed (N/2 + 1 frequencies,
+//    half the pairs) and cf_mirror_sum writes la[N - k] = la[k] and
+//    an[N - k] = -an[k].  k = 0 and, for even N, k = N/2 are their own
+//    mirrors.
+//  - No integer division and no sincosf per pair: a Barrett-reduced
+//    integer phase indexes the twiddle table (shared memory up to N =
+//    4096); the pair pays two integer multiply-adds, a umulhi, a table
+//    load, a logf and an atan2f.
+//  - Tuples with p == 0 (rows a filter dropped: 95% at Q6) are dropped
+//    from each staged tile, bit for bit as if computed.
+//  - One thread per frequency, 256 per block; the tuple column is cut into
+//    `splits` contiguous rows, and the (row, frequency block) items go to
+//    the resident blocks in turn.  Each item writes a partial row;
+//    cf_mirror_sum adds the rows in order for both outputs in one launch.
+//    No atomics: the same bits on every run.
+#include "cf.cuh"
 
 namespace {
 
-constexpr int kFreqThreads = 256;
-constexpr int kTupleTile = 1024;
-
-__global__ void logcf_partial(const float* __restrict__ p,
-                              const int* __restrict__ a,
-                              const int* __restrict__ a2,
-                              float* __restrict__ part_la,
-                              float* __restrict__ part_an, int n,
-                              int num_freq, int shift, int split_len) {
-  __shared__ float sp[kTupleTile];
-  __shared__ int sa[kTupleTile];
-  __shared__ int sa2[kTupleTile];
-  const int k = blockIdx.x * kFreqThreads + threadIdx.x;
-  const int kc = min(k, num_freq - 1);
-  const int k_hi = kc >> shift;
-  const int k_lo = kc & ((1 << shift) - 1);
-  const float w = static_cast<float>(2.0 * 3.14159265358979323846 /
-                                     num_freq);
-  const int lo = blockIdx.y * split_len;
-  const int hi = min(lo + split_len, n);
-  float la = 0.0f, an = 0.0f;
-  for (int t0 = lo; t0 < hi; t0 += kTupleTile) {
-    const int m = min(kTupleTile, hi - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < m; i += kFreqThreads) {
-      sp[i] = p[t0 + i];
-      sa[i] = a[t0 + i];
-      sa2[i] = a2[t0 + i];
-    }
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      float tl, ta;
-      cf_term(sp[i], modmult_phase(k_hi, k_lo, sa[i], sa2[i], num_freq), w,
-              tl, ta);
-      la += tl;
-      an += ta;
-    }
+// la[k], an[k] = the in-order sums of the partial rows (la halved), and
+// their mirrors la[N - k] = la[k], an[N - k] = -an[k], for k < K.
+__global__ void cf_mirror_sum(const float* __restrict__ part_lg,
+                              const float* __restrict__ part_an,
+                              float* __restrict__ la, float* __restrict__ an,
+                              int rows, int K, int N) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  float lg = 0.0f, a = 0.0f;
+  for (int r = 0; r < rows; ++r) {
+    lg += part_lg[static_cast<long long>(r) * K + k];
+    a += part_an[static_cast<long long>(r) * K + k];
   }
-  if (k < num_freq) {
-    part_la[(long long)blockIdx.y * num_freq + k] = la;
-    part_an[(long long)blockIdx.y * num_freq + k] = an;
+  lg *= 0.5f;
+  la[k] = lg;
+  an[k] = a;
+  const int m = N - k;
+  if (k > 0 && m != k) {
+    la[m] = lg;
+    an[m] = -a;
   }
 }
 
 }  // namespace
 
 extern "C" int logcf_launch(const float* p, const int* a, const int* a2,
+                            float* twiddles,
                             float* part_la, float* part_an, float* la,
                             float* an, int n, int num_freq, int shift,
-                            int splits, void* stream) {
+                            unsigned magic, int smem_table, int splits,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K = num_freq / 2 + 1;
   const int split_len = (n + splits - 1) / splits;
-  dim3 grid(blocks_for(num_freq, kFreqThreads), splits);
-  logcf_partial<<<grid, kFreqThreads, 0, s>>>(p, a, a2, part_la, part_an, n,
-                                              num_freq, shift, split_len);
-  rows_sum<<<blocks_for(num_freq, 256), 256, 0, s>>>(part_la, la, splits,
-                                                     num_freq);
-  rows_sum<<<blocks_for(num_freq, 256), 256, 0, s>>>(part_an, an, splits,
-                                                     num_freq);
+  float2* tab = reinterpret_cast<float2*>(twiddles);
+  launch_cf_twiddles(tab, num_freq, s);
+  launch_cf_partial(p, a, a2, tab, nullptr, nullptr, splits, split_len, n,
+                    part_la, part_an, 0, K, num_freq, magic, shift,
+                    smem_table != 0, s);
+  cf_mirror_sum<<<(K + 255) / 256, 256, 0, s>>>(part_la, part_an, la, an,
+                                                splits, K, num_freq);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@ plain PyTorch version.
     angle[g, f]   = sum_{i : gid_i = g} arg (q_i + p_i w^{k a_i})
 
 with k = freq_lo + f over the window [freq_lo, freq_lo + freq_cnt) of the
-N-point grid and the split-modmult phase of :mod:`.pb_cf`.  Tuples are
-sorted by group id first (:func:`presort_operands`, hoisted by the planner
+N-point grid and the exact phase of :mod:`.pb_cf`.  Tuples are sorted by
+group id first, and the group bounds and the piece table of the long
+groups built with them (:func:`presort_operands`, hoisted by the planner
 above its frequency-slab loop).
 """
 from __future__ import annotations
@@ -15,19 +16,26 @@ from __future__ import annotations
 import torch
 
 from . import build, ref, segments
-from .pb_cf import phase_shift, split_modmult_operands
+from .pb_cf import barrett_magic, phase_shift, split_modmult_operands
 
-PIECE = 1024            # csrc/group_logcf.cu kPiece
+PIECE = 1024            # tuples per piece of a long group
+#: groups of at most this many tuples are summed directly in the kernel's
+#: output pass; longer ones go through pieces of at most PIECE tuples.
+SHORT_MAX = 32
 
 
-def presort_operands(probs, values, gids, num_freq: int):
-    """The argsort(gids) + split-modmult operand prep of
+def presort_operands(probs, values, gids, num_freq: int, num_groups: int):
+    """The argsort(gids), phase-operand and group-table prep of
     :func:`group_logcf`, run once and reused across frequency slabs.
-    Returns ``(p_sorted, a, a2, g_sorted)``."""
+    Returns ``(p_sorted, a, a2, g_sorted, bounds, piece_first,
+    piece_start, piece_end)`` (one host sync, for the piece count)."""
     order = torch.argsort(gids, stable=True)
     a, a2, _ = split_modmult_operands(values[order], num_freq)
-    return (probs[order].contiguous(), a, a2,
-            gids[order].to(torch.int32).contiguous())
+    g = gids[order].to(torch.int32).contiguous()
+    bounds = segments.group_bounds(g, num_groups)
+    start, end, first = segments.pieces(bounds, PIECE, SHORT_MAX)
+    return (probs[order].contiguous(), a, a2, g,
+            bounds.to(torch.int32).contiguous(), first, start, end)
 
 
 def group_logcf_plain(probs, values, gids, num_groups: int, num_freq: int,
@@ -51,28 +59,37 @@ def group_logcf(probs, values, gids, *, num_groups: int, num_freq: int,
                          f"outside [0, {num_freq})")
     if probs.device.type == "cpu":
         if operands is not None:
-            probs, values, _, gids = operands
+            probs, values, _, gids = operands[:4]
         return group_logcf_plain(probs, values, gids, num_groups, num_freq,
                                  freq_lo, freq_cnt)
     if operands is None:
-        operands = presort_operands(probs, values, gids, num_freq)
-    p, a, a2, g = operands
+        operands = presort_operands(probs, values, gids, num_freq,
+                                    num_groups)
+    p, a, a2, g, bounds, first, start, end = operands
     n = p.shape[0]
     build.check_operand("group_logcf probs", p, torch.float32)
     for name, t in (("a", a), ("a2", a2), ("gids", g)):
         build.check_operand(f"group_logcf {name}", t, torch.int32, n)
-    start, end, first = segments.pieces(g, num_groups, PIECE)
+    for name, t in (("bounds", bounds), ("piece_first", first)):
+        build.check_operand(f"group_logcf {name}", t, torch.int32,
+                            num_groups + 1)
     dev = p.device
-    part = torch.empty((2, start.shape[0], freq_cnt), dtype=torch.float32,
-                       device=dev)
+    n_pieces = start.shape[0]
+    # one allocation: the twiddle table (N float2), then the piece rows
+    buf = torch.empty((2 * num_freq + 2 * n_pieces * freq_cnt,),
+                      dtype=torch.float32, device=dev)
+    part = buf[2 * num_freq:].view(2, n_pieces, freq_cnt)
     out = torch.empty((2, num_groups, freq_cnt), dtype=torch.float32,
                       device=dev)
+    if out.numel() == 0:            # nothing to launch
+        return out[0], out[1]
     build.launch("group_logcf_launch", p.data_ptr(), a.data_ptr(),
-                 a2.data_ptr(), start.data_ptr(), end.data_ptr(),
-                 first.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), start.shape[0],
-                 num_groups, num_freq, phase_shift(num_freq), freq_lo,
-                 freq_cnt, build.stream_handle(dev))
+                 a2.data_ptr(), bounds.data_ptr(), first.data_ptr(),
+                 start.data_ptr(), end.data_ptr(), buf.data_ptr(),
+                 part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), n_pieces, num_groups, num_freq,
+                 phase_shift(num_freq), barrett_magic(num_freq), SHORT_MAX,
+                 freq_lo, freq_cnt, build.stream_handle(dev))
     group_logcf.launches += 1
     return out[0], out[1]
 

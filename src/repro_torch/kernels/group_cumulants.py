@@ -50,7 +50,8 @@ def group_cumulant_sums(probs, values, gids, *, num_groups: int,
     build.check_operand("group_cumulant_sums probs", p, torch.float32)
     build.check_operand("group_cumulant_sums values", v, torch.float32, n)
     build.check_operand("group_cumulant_sums gids", g, torch.int32, n)
-    start, end, first = segments.pieces(g, num_groups, PIECE)
+    start, end, first = segments.pieces(
+        segments.group_bounds(g, num_groups), PIECE)
     dev = p.device
     part = torch.empty((start.shape[0], orders), dtype=torch.float32,
                        device=dev)

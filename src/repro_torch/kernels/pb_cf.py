@@ -7,9 +7,11 @@ For the Poisson-binomial product Q(X) = prod_i (q_i + p_i X^{a_i}):
     angle[k]   = sum_i arg (q_i + p_i w^{k a_i}),     w = exp(2 pi i / N)
 
 for every DFT frequency k < N.  The phase (k*a) mod N is integer-exact
-through the int32 split-modmult: k = k_hi*2^S + k_lo and a2 = (a << S)
-mod N, so (k*a) mod N = ((k_hi*a2) mod N + (k_lo*a) mod N) mod N with both
-products below 2^31 for N <= 2^20.
+through the split-modmult: k = k_hi*2^S + k_lo and a2 = (a << S) mod N,
+so k_hi*a2 + k_lo*a < 2^32 for N <= 2^20, and one Barrett step with
+:func:`barrett_magic` reduces it mod N on the card (``csrc/cf.cuh``).
+The kernel computes k <= N/2 only and mirrors the rest (conjugate
+symmetry: log_abs[N-k] = log_abs[k], angle[N-k] = -angle[k]).
 """
 from __future__ import annotations
 
@@ -17,10 +19,18 @@ import torch
 
 from . import build, ref
 
-#: tuple splits are sized so about this many blocks fill the card.
-TARGET_BLOCKS = 2048
-FREQ_THREADS = 256      # csrc/logcf.cu kFreqThreads
-TUPLE_TILE = 1024       # csrc/logcf.cu kTupleTile
+#: tuple splits are sized so about this many (split, frequency block) work
+#: items share the resident blocks: several per block, so the items of the
+#: last frequency block (one frequency at N = 4096) and the data-dependent
+#: ones balance out.
+TARGET_ITEMS = 4096
+#: fewest tuples per split: a small column (the value layer's 400- and
+#: 1,000-tuple COUNTs) still spreads over tens of blocks.
+MIN_SPLIT = 32
+FREQ_THREADS = 256      # csrc/cf.cuh kCfThreads
+#: largest N whose twiddle table logcf copies into shared memory (32 KB);
+#: above it the kernel reads the table from device memory (csrc/cf.cuh).
+DIRECT_TABLE_MAX = 4096
 
 
 def phase_shift(num_freq: int) -> int:
@@ -28,24 +38,32 @@ def phase_shift(num_freq: int) -> int:
     return max(1, (num_freq - 1).bit_length() // 2 + 1)
 
 
-def split_modmult_operands(values, num_freq: int):
-    """Exact int32 phase operands shared by the CF kernels: reduce
-    ``values`` mod N in the SOURCE integer dtype (a 64-bit value narrowed
-    first would wrap mod 2^32), narrow to int32, and build a2 = (a << S)
-    mod N by repeated doubling (every intermediate < 2N).  Returns
-    (a, a2, shift)."""
+def barrett_magic(num_freq: int) -> int:
+    """floor(2^32 / N), the kernels' reciprocal for x mod N with x < 2^32
+    (0 for N = 1, whose phase is always 0)."""
+    return (1 << 32) // num_freq if num_freq > 1 else 0
+
+
+def reduced_values(values, num_freq: int):
+    """a = values mod N as int32: reduced in the SOURCE integer dtype first
+    (a 64-bit value narrowed first would wrap mod 2^32)."""
     n = num_freq
     if n > 1 << 20:
         raise ValueError(f"num_freq {n} > 2^20 overflows the exact phase")
-    shift = phase_shift(n)
     v = values
     if not v.is_floating_point():
-        v = torch.remainder(v, n)
-    a = torch.remainder(v.to(torch.int32), n)
-    a2 = a
-    for _ in range(shift):
-        a2 = torch.remainder(a2 * 2, n)
-    return a.contiguous(), a2.contiguous(), shift
+        return torch.remainder(v, n).to(torch.int32).contiguous()
+    return torch.remainder(v.to(torch.int32), n).contiguous()
+
+
+def split_modmult_operands(values, num_freq: int):
+    """Exact int32 phase operands of the CF kernels: a = values mod N
+    (:func:`reduced_values`) and a2 = (a << S) mod N, computed in int64.
+    Returns (a, a2, shift)."""
+    a = reduced_values(values, num_freq)
+    shift = phase_shift(num_freq)
+    a2 = torch.remainder(a.to(torch.int64) << shift, num_freq)
+    return a, a2.to(torch.int32).contiguous(), shift
 
 
 def logcf_plain(probs, values, num_freq: int):
@@ -54,10 +72,11 @@ def logcf_plain(probs, values, num_freq: int):
 
 
 def splits_for(n: int, num_freq: int) -> int:
-    """Tuple splits of one launch: enough blocks to fill the card, never
-    fewer than one tuple tile per split."""
-    fblocks = -(-num_freq // FREQ_THREADS)
-    return max(1, min(-(-n // TUPLE_TILE), -(-TARGET_BLOCKS // fblocks)))
+    """Tuple splits of one launch over the N/2 + 1 computed frequencies:
+    about TARGET_ITEMS work items, never fewer than MIN_SPLIT tuples per
+    split."""
+    fblocks = -(-(num_freq // 2 + 1) // FREQ_THREADS)
+    return max(1, min(-(-n // MIN_SPLIT), -(-TARGET_ITEMS // fblocks)))
 
 
 def logcf(probs, values, *, num_freq: int):
@@ -72,12 +91,18 @@ def logcf(probs, values, *, num_freq: int):
     build.check_operand("logcf values", a, torch.int32, n)
     splits = splits_for(n, num_freq)
     dev = probs.device
-    part = torch.empty((2, splits, num_freq), dtype=torch.float32, device=dev)
+    half = num_freq // 2 + 1
+    # one allocation: the twiddle table (N float2), then the partial rows
+    buf = torch.empty((2 * num_freq + 2 * splits * half,),
+                      dtype=torch.float32, device=dev)
+    part = buf[2 * num_freq:].view(2, splits, half)
     out = torch.empty((2, num_freq), dtype=torch.float32, device=dev)
     build.launch("logcf_launch", probs.data_ptr(), a.data_ptr(),
-                 a2.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), n, num_freq, shift,
-                 splits, build.stream_handle(dev))
+                 a2.data_ptr(), buf.data_ptr(), part[0].data_ptr(),
+                 part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n,
+                 num_freq, shift, barrett_magic(num_freq),
+                 int(num_freq <= DIRECT_TABLE_MAX), splits,
+                 build.stream_handle(dev))
     logcf.launches += 1
     return out[0], out[1]
 

@@ -1,26 +1,39 @@
-"""The piece table of the grouped kernels (``csrc/group_logcf.cu``,
+"""The group tables of the grouped kernels (``csrc/group_logcf.cu``,
 ``csrc/group_cumulants.cu``).
 
-Tuples sorted by group id form one contiguous range per group; every range
-is cut into pieces of at most ``max_len`` tuples.  A kernel block reduces
-one piece into a partial row, and a second pass adds each group's pieces
-in order, so the work is the tuple count whatever the group skew.
+Tuples sorted by group id form one contiguous range per group
+(:func:`group_bounds`).  :func:`pieces` cuts ranges into pieces of at most
+``max_len`` tuples; a kernel block reduces one piece into a partial row,
+and a second pass adds each group's pieces in order, so the work is the
+tuple count whatever the group skew.  With ``short_max`` the groups of at
+most that many tuples get no piece: the grouped CF kernel sums them
+directly in its output pass.
 """
 from __future__ import annotations
 
 import torch
 
 
-def pieces(g_sorted, num_groups: int, max_len: int):
-    """(piece_start, piece_end, group_first) as int32 tensors on the
-    device of ``g_sorted``: piece r covers sorted tuples [start[r], end[r])
-    and group g owns pieces [group_first[g], group_first[g + 1])."""
-    dev = g_sorted.device
-    bounds = torch.searchsorted(
+def group_bounds(g_sorted, num_groups: int):
+    """bounds[g] = first sorted tuple of group g, bounds[num_groups] = n."""
+    return torch.searchsorted(
         g_sorted, torch.arange(num_groups + 1, dtype=g_sorted.dtype,
-                               device=dev))
+                               device=g_sorted.device))
+
+
+def pieces(bounds, max_len: int, short_max: int = 0):
+    """(piece_start, piece_end, group_first) as int32 tensors on the
+    device of ``bounds`` (from :func:`group_bounds`): piece r covers sorted
+    tuples [start[r], end[r]) and group g owns pieces [group_first[g],
+    group_first[g + 1]) -- none when the group has at most ``short_max``
+    tuples.  Reads the piece count back to the host (one sync)."""
+    dev = bounds.device
+    num_groups = bounds.shape[0] - 1
+    bounds = bounds.to(torch.int64)
     counts = bounds[1:] - bounds[:-1]
-    npieces = (counts + max_len - 1) // max_len
+    npieces = torch.where(counts > short_max,
+                          (counts + max_len - 1) // max_len,
+                          torch.zeros_like(counts))
     first = torch.zeros(num_groups + 1, dtype=torch.int64, device=dev)
     torch.cumsum(npieces, 0, out=first[1:])
     total = int(first[-1])

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.approx import _bernoulli_cumulant_polys
 from repro_torch.kernels import (cumulants, group_cf, group_cumulants, pb_cf,
-                                 polymul)
+                                 polymul, ref)
 
 
 @pytest.fixture
@@ -42,6 +42,110 @@ def _angle_err(got, want):
     d = got.double().cpu() - want.double().cpu()
     return float((torch.remainder(d + torch.pi, 2 * torch.pi)
                   - torch.pi).abs().max())
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _cf_rel_err(la, an, p, v, k, num_freq, gids=None, num_groups=1):
+    """Max error of (la, an) at frequencies ``k`` against the plain terms
+    summed in float64 (per group when ``gids`` is given), over the sum of
+    |term| (at least 1): chip_smoke.py's measure, tolerance 2e-5."""
+    tl, ta = ref._cf_terms(p[:, None], v[:, None], k[None, :], num_freq)
+    tl, ta = tl.double(), ta.double()
+    if gids is None:
+        gids = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
+    err = 0.0
+    for got, t in ((la, tl), (an, ta)):
+        want = ref.segment_sum(t, gids, num_groups)
+        scale = ref.segment_sum(t.abs(), gids, num_groups).clamp(min=1)
+        d = got.double().reshape(want.shape) - want
+        if t is ta:
+            d = torch.remainder(d + torch.pi, 2 * torch.pi) - torch.pi
+        err = max(err, float((d.abs() / scale).max()))
+    return err
+
+
+@pytest.mark.cuda
+def test_cuda_logcf_shapes(cuda_device):
+    """logcf computes k <= N/2 and mirrors the rest: N = 1 and 2, the odd
+    N of the value layer (401, 1001), Q6's 4096 and the device-memory
+    twiddle table at 2^20, at n from 1 to 5000 with values up to N - 1 and
+    some p = 0 tuples.  Frequencies k <= N/2 within 2e-5 of sum|term| of
+    the float64 plain sums (at N = 2^20 those next to 0 and N/2), the
+    others their exact mirrors (log_abs[N-k] = log_abs[k], angle[N-k] =
+    -angle[k]); bit-equal on a rerun, one launch counted per call."""
+    rng = np.random.default_rng(7)
+    pb_cf.logcf.launches = 0
+    calls = 0
+    for num_freq in (1, 2, 401, 1001, 4096, 1 << 20):
+        for n in (1, 255, 1024, 5000):
+            pr = rng.uniform(0.01, 0.99, n)
+            pr[::7] = 0.0
+            p = torch.tensor(pr, dtype=torch.float32, device=cuda_device)
+            v = torch.tensor(np.concatenate([[num_freq - 1], rng.integers(
+                0, num_freq, n - 1)]), device=cuda_device)
+            la, an = pb_cf.logcf(p, v, num_freq=num_freq)
+            la2, an2 = pb_cf.logcf(p, v, num_freq=num_freq)
+            calls += 2
+            assert torch.equal(_bits(la), _bits(la2))
+            assert torch.equal(_bits(an), _bits(an2))
+            half = num_freq // 2 + 1
+            if num_freq * n <= 1 << 23:
+                k = torch.arange(half, device=cuda_device)
+            else:
+                k = torch.cat([torch.arange(64), torch.arange(half - 64,
+                                                              half)]
+                              ).to(cuda_device)
+            err = _cf_rel_err(la[k], an[k], p, v, k.double(), num_freq)
+            assert err <= 2e-5, (num_freq, n, err)
+            mk = torch.arange(half, num_freq, device=cuda_device)
+            assert torch.equal(la[mk], la[num_freq - mk])
+            assert torch.equal(an[mk], -an[num_freq - mk])
+    assert pb_cf.logcf.launches == calls
+
+
+@pytest.mark.cuda
+def test_cuda_group_logcf_skew(cuda_device):
+    """group_logcf over skewed groups -- empty, 1-tuple, short_max and
+    short_max + 1, a 5,000-tuple group cut into pieces -- at windows that
+    start at 0, end at N - 1, or are narrower than a warp; within 2e-5 of
+    sum|term| per group, bit-equal on a rerun and through presorted
+    operands, one launch counted per call."""
+    rng = np.random.default_rng(8)
+    short = group_cf.SHORT_MAX
+    sizes = [0, 1, 5000, 0, short, short + 1, 1, 4, 2 * group_cf.PIECE + 3,
+             0, 3]
+    gids = np.repeat(np.arange(len(sizes)), sizes)
+    rng.shuffle(gids)
+    n, G = gids.shape[0], len(sizes) + 2        # two trailing empty groups
+    pr = rng.uniform(0.01, 0.99, n)
+    pr[::11] = 0.0
+    p = torch.tensor(pr, dtype=torch.float32, device=cuda_device)
+    g = torch.tensor(gids, device=cuda_device)
+    group_cf.group_logcf.launches = 0
+    calls = 0
+    for num_freq, lo, cnt in ((256, 0, 256), (256, 166, 90), (1001, 994, 7),
+                              (1 << 20, (1 << 20) - 40, 40)):
+        v = torch.tensor(rng.integers(0, num_freq, n), device=cuda_device)
+        run = lambda **kw: group_cf.group_logcf(
+            p, v, g, num_groups=G, num_freq=num_freq, freq_lo=lo,
+            freq_cnt=cnt, **kw)
+        la, an = run()
+        ops_ = group_cf.presort_operands(p, v, g, num_freq, G)
+        for la2, an2 in (run(), run(operands=ops_)):
+            assert torch.equal(_bits(la), _bits(la2))
+            assert torch.equal(_bits(an), _bits(an2))
+        calls += 3
+        k = lo + torch.arange(cnt, dtype=torch.float64, device=cuda_device)
+        err = _cf_rel_err(la, an, p, v, k, num_freq, g, G)
+        assert err <= 2e-5, (num_freq, lo, cnt, err)
+        empty = torch.tensor([i for i in range(G)
+                              if i >= len(sizes) or sizes[i] == 0],
+                             device=cuda_device)
+        assert not la[empty].any() and not an[empty].any()
+    assert group_cf.group_logcf.launches == calls
 
 
 @pytest.mark.cuda

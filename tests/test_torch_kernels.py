@@ -99,7 +99,7 @@ def test_group_logcf_plain_matches_pallas(rng, n, num_groups, num_freq, lo,
                                   num_freq=num_freq, freq_lo=lo,
                                   freq_cnt=cnt)
     # the presorted-operand route gives the same answer
-    ops_ = group_cf.presort_operands(tp, tv, tg, num_freq)
+    ops_ = group_cf.presort_operands(tp, tv, tg, num_freq, num_groups)
     la_o, an_o = group_cf.group_logcf(tp, tv, tg, num_groups=num_groups,
                                       num_freq=num_freq, freq_lo=lo,
                                       freq_cnt=cnt, operands=ops_)
@@ -166,22 +166,115 @@ def test_split_modmult_operands_match_jax(rng, num_freq):
         pb_cf.split_modmult_operands(torch.from_numpy(v), (1 << 20) + 1)
 
 
-@pytest.mark.parametrize("sizes,max_len", [
-    ([0, 5, 0, 2048, 1, 1025, 0], 1024), ([3, 3, 3], 2), ([0, 0], 4),
+@pytest.mark.parametrize("sizes,max_len,short_max", [
+    ([0, 5, 0, 2048, 1, 1025, 0], 1024, 0), ([3, 3, 3], 2, 0),
+    ([0, 0], 4, 0),
+    # the grouped CF kernel's split: short groups get no piece
+    ([0, 1, 5000, 32, 33, 0, 4, 1, 2049, 0], 1024, 32),
+    ([1, 2, 3, 4, 5], 2, 3), ([7, 0, 7], 3, 7),
 ])
-def test_pieces_cover_each_group_in_order(sizes, max_len):
+def test_pieces_cover_each_group_in_order(sizes, max_len, short_max):
+    """Every sorted tuple is covered exactly once, in group order: by the
+    group's pieces when it has more than ``short_max`` tuples, else by its
+    bounds alone (the direct path of csrc/group_logcf.cu)."""
     g = torch.from_numpy(np.repeat(np.arange(len(sizes)), sizes)
                          .astype(np.int32))
-    start, end, first = segments.pieces(g, len(sizes), max_len)
+    bounds = segments.group_bounds(g, len(sizes))
+    start, end, first = segments.pieces(bounds, max_len, short_max)
+    assert start.dtype == end.dtype == first.dtype == torch.int32
     assert first[0] == 0 and first[-1] == start.shape[0]
+    assert torch.equal(bounds, torch.from_numpy(
+        np.concatenate([[0], np.cumsum(sizes)])).to(bounds.dtype))
+    covered_all = []
     for gi, size in enumerate(sizes):
         own = range(int(first[gi]), int(first[gi + 1]))
-        assert len(own) == -(-size // max_len)
-        covered = [i for r in own for i in range(int(start[r]),
-                                                 int(end[r]))]
         lo = sum(sizes[:gi])
+        if size <= short_max:
+            assert len(own) == 0
+            covered = list(range(int(bounds[gi]), int(bounds[gi + 1])))
+        else:
+            assert len(own) == -(-size // max_len)
+            assert all(int(end[r]) - int(start[r]) <= max_len for r in own)
+            covered = [i for r in own for i in range(int(start[r]),
+                                                     int(end[r]))]
         assert covered == list(range(lo, lo + size))
-        assert all(int(end[r]) - int(start[r]) <= max_len for r in own)
+        covered_all += covered
+    assert covered_all == list(range(sum(sizes)))
+
+
+def test_presort_operands_group_tables(rng):
+    """presort_operands returns the sorted columns with the group bounds
+    and the long-group piece table, and the CPU route of group_logcf
+    takes them."""
+    sizes = [0, 3, group_cf.SHORT_MAX + 1, 0, 1, 2500]
+    gids = np.repeat(np.arange(len(sizes)), sizes)
+    rng.shuffle(gids)
+    n, G = gids.shape[0], len(sizes)
+    p = torch.from_numpy(rng.uniform(0.01, 0.99, n).astype(np.float32))
+    v = torch.from_numpy(rng.integers(0, 300, n))
+    g = torch.from_numpy(gids)
+    ops_ = group_cf.presort_operands(p, v, g, 257, G)
+    ps, a, a2, gs, bounds, first, start, end = ops_
+    assert torch.equal(gs, torch.sort(g.to(torch.int32)).values)
+    assert torch.equal(bounds, torch.tensor(
+        np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32))
+    assert first.tolist() == [0, 0, 0, 1, 1, 1, 4]
+    assert start.tolist() == [3, 37, 1061, 2085]
+    assert end.tolist() == [36, 1061, 2085, 2537]
+    want = group_cf.group_logcf_plain(p, v, g, G, 257, 40, 60)
+    got = group_cf.group_logcf(p, v, g, num_groups=G, num_freq=257,
+                               freq_lo=40, freq_cnt=60, operands=ops_)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("num_freq", [1, 2, 3, 257, 1001, 4096])
+def test_logcf_plain_conjugate_symmetry(rng, num_freq):
+    """The identity the logcf kernel relies on to compute k <= N/2 only:
+    for real p, log_abs[N - k] = log_abs[k] and angle[N - k] = -angle[k]
+    (mod 2 pi), with values up to N - 1."""
+    n = 64
+    p = torch.from_numpy(rng.uniform(0.01, 0.99, n).astype(np.float32))
+    v = torch.from_numpy(np.concatenate([[num_freq - 1], rng.integers(
+        0, num_freq, n - 1)]))
+    la, an = pb_cf.logcf_plain(p, v, num_freq)
+    k = np.arange(1, num_freq)
+    mirror = num_freq - k
+    np.testing.assert_allclose(la.numpy()[mirror], la.numpy()[k], rtol=0,
+                               atol=1e-5)
+    _assert_angles_close(an.numpy()[mirror], -an.numpy()[k], 1e-5)
+
+
+def _barrett(x, num_freq):
+    """The kernels' phase reduction (csrc/cf.cuh reduce_phase) in uint64:
+    x - umulhi(x, magic) * N in 32-bit arithmetic, then one unsigned min."""
+    x, n = np.asarray(x, np.uint64), np.uint64(num_freq)
+    m32 = np.uint64(0xFFFFFFFF)
+    magic = np.uint64(pb_cf.barrett_magic(num_freq))
+    r = (x - ((x * magic) >> np.uint64(32)) * n) & m32
+    return np.minimum(r, (r - n) & m32)
+
+
+@pytest.mark.parametrize("num_freq", [1, 2, 3, 401, 1001, 4096, 4097,
+                                      (1 << 20) - 1, 1 << 20])
+def test_phase_reduction_is_exact(rng, num_freq):
+    """The kernels' phase: the host's a2 = (a << S) mod N, k_hi * a2 +
+    k_lo * a stays below 2^32, and one Barrett step gives exactly
+    (k * a) mod N, for k and a up to N - 1."""
+    n = num_freq
+    shift = pb_cf.phase_shift(n)
+    assert pb_cf.barrett_magic(n) < 1 << 32
+    edge = np.arange(min(n, 40))
+    k = np.concatenate([edge, n - 1 - edge, rng.integers(0, n, 300)])
+    a = np.concatenate([edge, n - 1 - edge, rng.integers(0, n, 300)])
+    kk, aa = (x.astype(np.uint64) for x in np.meshgrid(k, a))
+    _, t_a2, _ = pb_cf.split_modmult_operands(torch.from_numpy(a), n)
+    a2 = np.broadcast_to(t_a2.numpy().astype(np.uint64)[:, None], aa.shape)
+    assert np.array_equal(a2, (aa << np.uint64(shift)) % np.uint64(n))
+    x = ((kk >> np.uint64(shift)) * a2
+         + (kk & np.uint64((1 << shift) - 1)) * aa)
+    assert int(x.max()) < 1 << 32
+    assert np.array_equal(_barrett(x, n), (kk * aa) % np.uint64(n))
 
 
 def test_dispatch_guards():
