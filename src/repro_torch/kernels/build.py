@@ -37,11 +37,11 @@ SIGNATURES = {
     # shift, magic, short_max, freq_lo, freq_cnt, stream
     "group_logcf_launch": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                            U, I, I, I, P],
-    # p, v, coef, partial, out, n, orders, stream
-    "cumulant_sums_launch": [P, P, P, P, P, I, I, P],
-    # p, v, coef, piece_start, piece_end, group_first, partial, out,
-    # n_pieces, num_groups, orders, stream
-    "group_cumulant_sums_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
+    # p, v, gids, partial, out, n, tiles, num_groups, orders, stream
+    "cumulant_sums_launch": [P, P, P, P, P, I, I, I, I, P],
+    # p, v, g_sorted, bounds, partial, out, n, slots, num_groups, orders,
+    # stream
+    "group_cumulant_sums_launch": [P, P, P, P, P, P, I, I, I, I, P],
     # a, b, c, na, nb, stream
     "polymul_launch": [P, P, P, I, I, P],
 }

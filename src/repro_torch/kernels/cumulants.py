@@ -8,24 +8,19 @@ with kappa_j the Bernoulli cumulant polynomials of
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
-import numpy as np
 import torch
 
-from ..core.approx import MAX_ORDER, _bernoulli_cumulant_polys
+from ..core.approx import MAX_ORDER
 from . import build, ref
 
-TILE = 1024             # csrc/cumulants.cu kTile
+#: tuples per block of ``csrc/cumulants.cu`` (kTile): the split of a column
+#: into blocks depends on its length alone.
+TILE = 4096
 
 
-@lru_cache(maxsize=None)
-def coefficients(orders: int, device: torch.device):
-    """The (orders, orders + 1) float32 coefficient table on ``device``
-    (deg kappa_j = j <= orders, so the table truncates exactly there)."""
-    table = np.asarray(_bernoulli_cumulant_polys()[1:orders + 1,
-                                                   :orders + 1], np.float32)
-    return torch.as_tensor(table, device=device).contiguous()
+def tile_count(n: int) -> int:
+    """Blocks (tiles of :data:`TILE` tuples) of an n-tuple launch."""
+    return -(-n // TILE)
 
 
 def check_orders(orders: int) -> None:
@@ -45,19 +40,32 @@ def cumulant_sums(probs, values, *, orders: int = 8):
     check_orders(orders)
     if probs.device.type == "cpu":
         return cumulant_sums_plain(probs, values, orders)
-    n = probs.shape[0]
     v = values.to(torch.float32).contiguous()
     build.check_operand("cumulant_sums probs", probs, torch.float32)
-    build.check_operand("cumulant_sums values", v, torch.float32, n)
-    dev = probs.device
-    blocks = max(1, -(-n // TILE))
-    part = torch.empty((blocks, orders), dtype=torch.float32, device=dev)
-    out = torch.empty((orders,), dtype=torch.float32, device=dev)
-    build.launch("cumulant_sums_launch", probs.data_ptr(), v.data_ptr(),
-                 coefficients(orders, dev).data_ptr(), part.data_ptr(),
-                 out.data_ptr(), n, orders, build.stream_handle(dev))
+    build.check_operand("cumulant_sums values", v, torch.float32,
+                        probs.shape[0])
+    out = launch_tiles(probs, v, None, 1, orders)[:orders]
     cumulant_sums.launches += 1
     return out
+
+
+def launch_tiles(p, v, gids, num_groups: int, orders: int):
+    """Launch ``csrc/cumulants.cu`` for the scalar kernel (num_groups = 1,
+    no gids) or route (a) of the grouped one (at most 8 groups, int64
+    ``gids``).  Returns a buffer that starts with the (num_groups, orders)
+    sums, row by row.  Operands checked by the caller; no host sync."""
+    n = p.shape[0]
+    tiles = tile_count(n)
+    width = num_groups * orders
+    # one allocation: the sums, then the tiles' partial sums
+    buf = torch.empty((width * (1 + tiles),), dtype=torch.float32,
+                      device=p.device)
+    out = buf.data_ptr()
+    build.launch("cumulant_sums_launch", p.data_ptr(), v.data_ptr(),
+                 0 if gids is None else gids.data_ptr(), out + 4 * width,
+                 out, n, tiles, num_groups, orders,
+                 build.stream_handle(p.device))
+    return buf
 
 
 cumulant_sums.launches = 0

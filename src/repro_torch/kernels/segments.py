@@ -6,8 +6,12 @@ Tuples sorted by group id form one contiguous range per group
 ``max_len`` tuples; a kernel block reduces one piece into a partial row,
 and a second pass adds each group's pieces in order, so the work is the
 tuple count whatever the group skew.  With ``short_max`` the groups of at
-most that many tuples get no piece: the grouped CF kernel sums them
-directly in its output pass.
+most that many tuples get no piece: the grouped kernels sum them directly
+in their output pass.
+
+:func:`pieces` counts the pieces on the host (one sync).  The grouped
+cumulant kernel needs no count: :func:`slot_pieces` is its table, written
+in PyTorch for the CPU tests.
 """
 from __future__ import annotations
 
@@ -45,3 +49,27 @@ def pieces(bounds, max_len: int, short_max: int = 0):
     return (start.to(torch.int32).contiguous(),
             end.to(torch.int32).contiguous(),
             first.to(torch.int32).contiguous())
+
+
+def slot_pieces(g_sorted, bounds, max_len: int, short_max: int):
+    """(start, end) of each piece slot s < n // (short_max + 1), as
+    ``csrc/group_cumulants.cu`` finds them on the device, with no count and
+    no scan: piece j of a group of more than ``short_max`` tuples starting
+    at sorted tuple lo sits in slot lo // (short_max + 1) + j, and the
+    owner of slot s is the group of tuple (short_max + 1) * s + short_max.
+    A slot that no piece owns has start = end = 0.  Listed in slot order,
+    the live slots are :func:`pieces` in order."""
+    span = short_max + 1
+    slots = g_sorted.shape[0] // span
+    s = torch.arange(slots, device=g_sorted.device)
+    g = g_sorted[s * span + short_max].long()
+    bounds = bounds.long()
+    lo, hi = bounds[g], bounds[g + 1]
+    j = s - lo // span
+    npieces = torch.where(hi - lo > short_max,
+                          (hi - lo + max_len - 1) // max_len,
+                          torch.zeros_like(lo))
+    live = (j >= 0) & (j < npieces)
+    start = torch.where(live, lo + j * max_len, torch.zeros_like(lo))
+    end = torch.where(live, torch.minimum(start + max_len, hi), start)
+    return start, end

@@ -205,3 +205,173 @@ def test_cuda_polymul_matches_plain(cuda_device):
     assert polymul.polymul.launches == 8
     with pytest.raises(ValueError):
         polymul.polymul(a.double(), b.double())
+
+
+def _cumulant_rel_err(got, p, v, g, num_groups, orders):
+    """Max error of cumulant sums against the plain version evaluated in
+    float64 on the same inputs, over the absolute-coefficient scale
+    (chip_smoke.py's measure, tolerance 1e-5), with NaN required exactly
+    where the float32 plain version has it.  (The float32 plain version is
+    no witness for large groups: its index_add_ adds a group's terms by
+    float32 atomics, whose error at 10^5 tuples nears the tolerance.)"""
+    def plain(pp, vv):
+        if g is None:
+            return cumulants.cumulant_sums_plain(pp, vv, orders)[None]
+        return group_cumulants.group_cumulant_sums_plain(pp, vv, g,
+                                                         num_groups, orders)
+    nan = torch.isnan(plain(p, v))
+    got = got.reshape(nan.shape)
+    assert torch.equal(torch.isnan(got), nan)
+    want = plain(p.double(), v.double())
+    scale = _abs_scale(p, v, g, num_groups, orders).double()
+    d = (got.double() - want).abs() / scale
+    return float(d[~nan].max()) if (~nan).any() else 0.0
+
+
+def _skewed_gids(rng, sizes, device):
+    gids = np.repeat(np.arange(len(sizes)), sizes)
+    rng.shuffle(gids)
+    return torch.tensor(gids, device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_cumulant_routes(cuda_device):
+    """Both cumulant kernels against their plain versions at every order
+    class: the scalar kernel and route (a) (G <= NO_SORT_MAX, no sort) on
+    full, ragged and misaligned tiles; route (b) (sorted) from G =
+    NO_SORT_MAX + 1 up; each bit-equal on a rerun (route (b) also through
+    presorted operands), and one launch counted per call."""
+    rng = np.random.default_rng(9)
+    dev = cuda_device
+    cumulants.cumulant_sums.launches = 0
+    group_cumulants.group_cumulant_sums.launches = 0
+    calls = gcalls = 0
+    tile = cumulants.TILE
+    for n in (1, 255, tile, tile + 1, 5 * tile - 3, 100_003):
+        pr = rng.uniform(0.0, 1.0, n + 1)
+        pr[::5] = 0.0
+        p_all = torch.tensor(pr, dtype=torch.float32, device=dev)
+        v_all = torch.tensor(rng.integers(0, 60, n + 1), dtype=torch.float32,
+                             device=dev)
+        for p, v in ((p_all[:n], v_all[:n]), (p_all[1:], v_all[1:])):
+            for orders in (1, 3, 6, 8, 12):
+                got = cumulants.cumulant_sums(p, v, orders=orders)
+                assert torch.equal(_bits(got), _bits(cumulants.cumulant_sums(
+                    p, v, orders=orders)))
+                calls += 2
+                err = _cumulant_rel_err(got, p, v, None, 1, orders)
+                assert err <= 1e-5, (n, orders, err)
+        p, v = p_all[:n], v_all[:n]
+        for G in (1, 2, group_cumulants.NO_SORT_MAX,
+                  group_cumulants.NO_SORT_MAX + 1, 40, 5000):
+            g = torch.tensor(rng.integers(0, G, n), device=dev)
+            for orders in (3, 8, 12):
+                run = lambda **kw: group_cumulants.group_cumulant_sums(
+                    p, v, g, num_groups=G, orders=orders, **kw)
+                got = run()
+                assert torch.equal(_bits(got), _bits(run()))
+                err = _cumulant_rel_err(got, p, v, g, G, orders)
+                assert err <= 1e-5, (n, G, orders, err)
+                # presorted operands: route (b) sums them in the same
+                # order; route (a) sums in the order it is given
+                ops_ = group_cumulants.presort_operands(p, v, g)
+                got_o = run(operands=ops_)
+                if G > group_cumulants.NO_SORT_MAX:
+                    assert torch.equal(_bits(got), _bits(got_o))
+                err = _cumulant_rel_err(got_o, p, v, g, G, orders)
+                assert err <= 1e-5, (n, G, orders, err)
+                gcalls += 3
+    assert cumulants.cumulant_sums.launches == calls
+    assert group_cumulants.group_cumulant_sums.launches == gcalls
+
+
+@pytest.mark.cuda
+def test_cuda_group_cumulants_skew(cuda_device):
+    """Route (b) over skewed groups -- empty, 1-tuple, SHORT_MAX and
+    SHORT_MAX + 1, a 5,000-tuple group cut into pieces, 2 * PIECE + 3, a run
+    of groups of exactly SLOT tuples -- and route (a) at G = NO_SORT_MAX with
+    empty groups: within 1e-5 of the scale, empty rows exactly zero,
+    bit-equal on a rerun."""
+    rng = np.random.default_rng(10)
+    dev = cuda_device
+    short, piece = group_cumulants.SHORT_MAX, group_cumulants.PIECE
+    cases = ([0, 1, 5000, 0, short, short + 1, 1, 4, 2 * piece + 3, 0, 3]
+             + [group_cumulants.SLOT] * 40 + [0, 0],
+             [short + 1] * 200, [0] * 50 + [70_000] + [0] * 20,
+             [3, 0, 0, 9000, 0, 1, 0, 0])
+    for sizes in cases:
+        G = len(sizes)
+        g = _skewed_gids(rng, sizes, dev)
+        n = g.shape[0]
+        pr = rng.uniform(0.0, 1.0, n)
+        pr[::3] = 0.0
+        p = torch.tensor(pr, dtype=torch.float32, device=dev)
+        v = torch.tensor(rng.integers(1, 40, n), dtype=torch.float32,
+                         device=dev)
+        got = group_cumulants.group_cumulant_sums(p, v, g, num_groups=G)
+        assert torch.equal(_bits(got), _bits(
+            group_cumulants.group_cumulant_sums(p, v, g, num_groups=G)))
+        err = _cumulant_rel_err(got, p, v, g, G, 8)
+        assert err <= 1e-5, (sizes[:12], err)
+        empty = torch.tensor([i for i, s in enumerate(sizes) if s == 0],
+                             dtype=torch.int64, device=dev)
+        assert torch.equal(_bits(got[empty]),
+                           torch.zeros_like(_bits(got[empty])))
+
+
+@pytest.mark.cuda
+def test_cuda_cumulants_nan(cuda_device):
+    """p = 0 tuples are not dropped: kappa_j(0) = 0, but 0 * v^j is NaN
+    where v^j overflows float32 (v = 1e5 at orders 8), and the kernels give
+    NaN exactly where the plain versions do -- in the scalar kernel, in
+    route (a), and in route (b) in a short and in a long group."""
+    rng = np.random.default_rng(11)
+    dev = cuda_device
+    n = 3000
+    pr = rng.uniform(0.0, 1.0, n)
+    vr = rng.integers(1, 30, n).astype(np.float64)
+    pr[[7, 2500]] = 0.0
+    vr[[7, 2500]] = 1e5
+    p = torch.tensor(pr, dtype=torch.float32, device=dev)
+    v = torch.tensor(vr, dtype=torch.float32, device=dev)
+    got = cumulants.cumulant_sums(p, v, orders=8)
+    assert bool(torch.isnan(got).any())
+    _cumulant_rel_err(got, p, v, None, 1, 8)
+    gl = np.full(n, 3)
+    gl[7] = 1                       # a short group of one NaN tuple
+    for G in (4, 20):               # route (a), route (b); 2500 in group 3
+        g = torch.tensor(gl, device=dev)
+        got = group_cumulants.group_cumulant_sums(p, v, g, num_groups=G)
+        assert bool(torch.isnan(got[1]).any())
+        assert bool(torch.isnan(got[3]).any())
+        assert not bool(torch.isnan(got[0]).any())
+        _cumulant_rel_err(got, p, v, g, G, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_cumulants_no_host_sync(cuda_device):
+    """Neither wrapper synchronises the host, on either grouped route: run
+    under torch.cuda.set_sync_debug_mode("error") after one warm-up call
+    (which builds and loads the kernels)."""
+    rng = np.random.default_rng(12)
+    dev = cuda_device
+    n = 50_000
+    p = torch.tensor(rng.uniform(0, 1, n), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.integers(1, 50, n), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.integers(0, 3000, n), device=dev)
+    g8 = g % 8
+    calls = (lambda: cumulants.cumulant_sums(p, v, orders=8),
+             lambda: group_cumulants.group_cumulant_sums(
+                 p, v, g8, num_groups=8),
+             lambda: group_cumulants.group_cumulant_sums(
+                 p, v, g, num_groups=3000))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

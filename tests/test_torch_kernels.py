@@ -5,6 +5,9 @@ the bounds those tests use; the split-modmult operands, the piece table
 of the grouped kernels and the dispatch guards.  The CUDA kernels
 themselves run only on a card (tests/test_torch_cuda.py; ``chip_smoke.py``
 holds them against the plain versions at the SF1 shapes)."""
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,6 +203,97 @@ def test_pieces_cover_each_group_in_order(sizes, max_len, short_max):
         assert covered == list(range(lo, lo + size))
         covered_all += covered
     assert covered_all == list(range(sum(sizes)))
+
+
+def _source(name):
+    return (pathlib.Path(segments.__file__).parent / "csrc" / name
+            ).read_text()
+
+
+def _constants(text):
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("sizes", [
+    [0, 5, 0, 2048, 1, 1025, 0],                   # empty groups
+    [0, 0, 100_000, 0],                            # one huge group
+    [1, 32, 5, 0, 32, 17, 3] * 20,                 # all <= SHORT_MAX
+    [5000],                                        # G = 1
+    [33] * 300,                                    # every group one slot
+    [33, 34, 1024, 1025, 1056, 2048, 2049, 32, 33, 0, 67],
+    "random",
+])
+def test_slot_pieces_match_pieces(sizes):
+    """The sync-free piece table of route (b) (csrc/group_cumulants.cu,
+    written in PyTorch as segments.slot_pieces): n // SLOT slots sized
+    from n alone; listed in slot order its live slots are exactly the
+    counted table segments.pieces, and a long group's pieces sit in the
+    slots [first // SLOT, first // SLOT + pieces), in order -- what the
+    direct pass folds."""
+    if sizes == "random":
+        r = np.random.default_rng(3)
+        sizes = r.choice([0, 1, 4, 32, 33, 34, 100, 1023, 1024, 1025, 5000],
+                         400).tolist()
+    short, piece, slot = (group_cumulants.SHORT_MAX, group_cumulants.PIECE,
+                          group_cumulants.SLOT)
+    g = torch.from_numpy(np.repeat(np.arange(len(sizes)), sizes))
+    n = g.shape[0]
+    bounds = segments.group_bounds(g, len(sizes))
+    start, end = segments.slot_pieces(g, bounds, piece, short)
+    assert start.shape[0] == group_cumulants.slot_count(n) == n // slot
+    live = end > start
+    p_start, p_end, p_first = segments.pieces(bounds, piece, short)
+    assert torch.equal(start[live], p_start.long())
+    assert torch.equal(end[live], p_end.long())
+    assert not start[~live].any() and not end[~live].any()
+    for gi in range(len(sizes)):
+        k = int(p_first[gi + 1] - p_first[gi])
+        s0 = int(bounds[gi]) // slot
+        for j in range(k):
+            r = int(p_first[gi]) + j
+            assert int(start[s0 + j]) == int(p_start[r])
+            assert int(end[s0 + j]) == int(p_end[r])
+
+
+def test_cumulant_launch_split_depends_on_n_only(monkeypatch):
+    """Tiles of route (a) and the scalar kernel, and slots of route (b),
+    come from n alone (never from the card: asking for its properties
+    here raises); the tiles cover [0, n) once; the route comes from
+    num_groups alone; the sources' constants are the wrappers' and neither
+    cumulant source uses atomics."""
+    def no_card(*_, **__):
+        raise AssertionError("the launch split asked for the card")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_card)
+    monkeypatch.setattr(torch.cuda, "device_count", no_card)
+    tile = cumulants.TILE
+    for n in (0, 1, tile - 1, tile, tile + 1, 750_000, 10 ** 8):
+        t = cumulants.tile_count(n)
+        assert t == -(-n // tile)
+        assert t * tile >= n and (t - 1) * tile < max(n, 1)
+        assert group_cumulants.slot_count(n) == n // group_cumulants.SLOT
+    c = _constants(_source("cumulants.cu"))
+    assert c["kThreads"] * c["kVec"] * c["kRuns"] == tile
+    assert c["kMaxTileGroups"] == group_cumulants.NO_SORT_MAX
+    c = _constants(_source("group_cumulants.cu"))
+    assert c["kShortMax"] == group_cumulants.SHORT_MAX
+    assert c["kPiece"] == group_cumulants.PIECE
+    for name in ("cumulants.cu", "group_cumulants.cu", "common.cuh"):
+        assert not re.search(r"\batomic\w*\s*\(", _source(name))
+
+
+def test_cumulant_table_in_source():
+    """The kernels' __constant__ coefficient table (csrc/common.cuh) is the
+    plain versions' float32 table, bit for bit."""
+    text = _source("common.cuh")
+    body = text[text.index("cumulant table begin"):
+                text.index("cumulant table end")]
+    body = body[body.index("= {"):]
+    got = np.array([float(x) for x in re.findall(r"(-?\d+)\.f", body)],
+                   np.float32).reshape(12, 13)
+    from repro_torch.core.approx import _bernoulli_cumulant_polys as polys
+    want = np.asarray(polys()[1:], np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_presort_operands_group_tables(rng):
