@@ -13,8 +13,8 @@ Five phases, each of which raises on a failed check (exit code != 0):
    tuples of the TPC-H SF1 path; the polynomial products of the value
    layer, and larger ones).  Each kernel gets two times: its own
    __global__ launches alone (``ms``, from the profiler's kernel rows;
-   for the two redesigned CF kernels every device operation of the
-   wrapper call) and its wrapper as the path calls it (``wrapper_ms``,
+   for the redesigned kernels, all five now, every device operation of
+   the wrapper call) and its wrapper as the path calls it (``wrapper_ms``,
    CUDA events around whole calls, set-up included); the plain version
    and, where one PyTorch call computes the same function, that call
    (``library_ms``) are timed with CUDA events.  Each kernel's bound is
@@ -25,7 +25,9 @@ Five phases, each of which raises on a failed check (exit code != 0):
    the grouped cumulant kernel on both its routes and over skewed groups;
    each checked, rerun bit-equal and timed; and ``cumulant_sums`` alone on
    the value layer's 10^8 tuples at the gamma-mixture fit's 6 orders.
-   The four redesigned kernels' times print beside those of their first
+   polymul also runs at the edge shapes of its partition (a factor of one
+   coefficient, asymmetric products, tile and slice boundaries +-1).
+   The five redesigned kernels' times print beside those of their first
    design; logcf also runs with its twiddle table in device memory
    instead of shared memory.
 3. TPC-H path: generate the SF1 tables on the card, reset the kernels'
@@ -97,7 +99,8 @@ SOURCES = {
 #: cf_partial only where a group has more than SHORT_MAX tuples: 2 at the
 #: Q18 shape, 3 with long groups.  group_cumulant_sums makes 2 launches on
 #: route (a) (cumulants.cu, at most NO_SORT_MAX groups) and 3 on route (b)
-#: (group_cumulants.cu).
+#: (group_cumulants.cu).  polymul makes one launch (polymul_cluster) for a
+#: product below polymul.WIDE_BLOCKS_FROM multiply-adds, two above it.
 GLOBALS = {
     "logcf": (("cf_twiddles", "cf_partial", "cf_mirror_sum"), 3),
     "group_logcf": (("cf_twiddles", "cf_partial", "group_logcf_direct"), 2),
@@ -105,18 +108,20 @@ GLOBALS = {
     "group_cumulant_sums": (("cumulant_tiles", "cumulant_rows_sum",
                              "cumulant_group_bounds", "group_cumulants_pieces",
                              "group_cumulants_direct"), 3),
-    "polymul": (("polymul_tile",), 1),
+    "polymul": (("polymul_cluster", "polymul_partial", "polymul_fold"), 2),
 }
-#: the four kernels redesigned since their first CUDA design: their ``ms``
+#: the five kernels redesigned since their first CUDA design: their ``ms``
 #: counts every device operation of a wrapper call (the wrapper's own
 #: casts and, on route (b) of group_cumulant_sums, its sort included).
 #: Values: the first design's kernel ms and wrapper ms on the same shapes
 #: (PERF.md's kernel table, "earlier" column; group_cumulant_sums at Q3's
-#: shape, EARLIER_Q1 at Q1's), measured on EARLIER_CARD; printed beside
+#: shape, EARLIER_Q1 at Q1's; polymul at 1001 x 1001), measured on
+#: EARLIER_CARD; printed beside
 #: this run's times, never in the kernels line.
 REDESIGNED = {"logcf": (21.966, 22.129), "group_logcf": (1.645, 2.177),
               "cumulant_sums": (0.0314, 0.0362),
-              "group_cumulant_sums": (0.307, 0.819)}
+              "group_cumulant_sums": (0.307, 0.819),
+              "polymul": (0.0101, 0.0257)}
 EARLIER_Q1 = (0.038, 0.690)
 EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 #: float ops per (frequency, tuple) pair of a CF term as the kernels form
@@ -228,7 +233,6 @@ def kernel_ms(name: str, fn, reps: int, per_call: int | None = None
             us += t
             seen += e.count
             rows[e.key[:80]] = rows.get(e.key[:80], 0) + e.count
-    check(seen > 0, f"{name}: the profiler saw none of {names}")
     return (us / 1e3 / reps, all_us / 1e3 / reps, seen,
             reps * (per_call or default_per_call), rows)
 
@@ -240,15 +244,17 @@ def timings(name: str, fn, reps: int, per_call: int | None = None) -> dict:
     path calls it (``wrapper_ms``, CUDA events around whole calls)."""
     # The profiler now and then loses kernel rows of a session (13 of 15
     # launches of 6.7 ms logcf calls seen once, 10 of 20 of 0.26 ms
-    # cumulant_sums calls once), so a REDESIGNED kernel, whose ms must
-    # cover every launch, is profiled again, at most three times in all.
-    for attempt in range(1, 4):
+    # cumulant_sums calls once, all 40 of polymul's once), so a REDESIGNED
+    # kernel, whose ms must cover every launch, is profiled again, at most
+    # four times in all.
+    for attempt in range(1, 5):
         own, dev_ms, seen, expected, rows = kernel_ms(name, fn, reps,
                                                       per_call)
-        if name not in REDESIGNED or seen == expected:
+        if seen == expected or (name not in REDESIGNED and seen > 0):
             break
         print(f"{name}: the profiler saw {seen} of {expected} launches "
               f"({rows}); profiling again")
+    check(seen > 0, f"{name}: the profiler saw none of {GLOBALS[name][0]}")
     check(name not in REDESIGNED or seen == expected,
           f"{name}: {seen} kernel launches, expected {expected}: {rows}")
     return dict(ms=dev_ms if name in REDESIGNED else own, own_ms=own,
@@ -323,7 +329,9 @@ def table_ab(fn, reps: int) -> dict:
     try:
         for side in ("shared_ms", "device_ms", "device_ms", "shared_ms"):
             pb_cf.DIRECT_TABLE_MAX = keep if side == "shared_ms" else 0
-            got[side].append(kernel_ms("logcf", fn, reps)[1])
+            _, all_ms, seen, _, _ = kernel_ms("logcf", fn, reps)
+            check(seen > 0, "logcf: the profiler saw none of its launches")
+            got[side].append(all_ms)
     finally:
         pb_cf.DIRECT_TABLE_MAX = keep
     out = {k: sum(v) / len(v) for k, v in got.items()}
@@ -512,8 +520,8 @@ def kernel_phase(dev, rng) -> dict:
     err_la, err_an, rel = cf_window_errors(la, an, p, v, nf, windows, win)
     plain_ms = cuda_ms(lambda: pb_cf.logcf_plain(p[:prefix], v[:prefix], nf),
                        3)
-    ms_prefix = kernel_ms("logcf", lambda: pb_cf.logcf(
-        p[:prefix], v[:prefix], num_freq=nf), 10)[1]
+    ms_prefix = timings("logcf", lambda: pb_cf.logcf(
+        p[:prefix], v[:prefix], num_freq=nf), 10)["ms"]
     # The least work: the live tuples (p != 0; the kernel skips the rest
     # bit-identically) at the N/2 + 1 frequencies it computes.
     live = int((p != 0).sum())
@@ -755,55 +763,150 @@ def kernel_phase(dev, rng) -> dict:
         "group_cumulant_sums_Q1")
     rows["group_cumulant_sums"]["skew"] = group_cumulant_skew_cases(put)
     rows["polymul"] = polymul_rows(put, rng)
+    rows["polymul"]["routes"] = polymul_routes(put, rng)
     return rows
+
+
+def polymul_edge_shapes() -> list:
+    """Edge shapes of the polymul kernel: a factor of one coefficient, the
+    asymmetric products, and the shapes at a tile and a slice boundary of
+    ``polymul.tiling`` and one past either side (output lengths around a
+    multiple of the 384-output tiles of the cluster route and the
+    1536-output tiles of the two-launch route; shorter factors around a
+    multiple of the 32- and 64-value slices)."""
+    from repro_torch.kernels import polymul
+    small = polymul.tiling(128, 1000).tile
+    wide = polymul.tiling(8192, 16_384).tile
+    s32 = polymul.tiling(32, 1000).slice
+    s64 = polymul.tiling(960, 960).slice
+    k64 = 960 // s64 * s64
+    shapes = [(1, 1), (1, 16_384), (1024, 128), (16_384, 128)]
+    for d in (-1, 0, 1):
+        shapes += [(128, small - 127 + d), (8192, 16 * wide - 8191 + d),
+                   (s32 + d, 1000), (k64 + d, k64 + d)]
+    for na, nb in shapes[4:]:
+        tl = polymul.tiling(na, nb)
+        check((na + nb - 1) % tl.tile in (tl.tile - 1, 0, 1)
+              or min(na, nb) % tl.slice in (tl.slice - 1, 0, 1),
+              f"polymul {na}x{nb}: not at a tile or slice boundary ({tl})")
+    return shapes
 
 
 def polymul_rows(put, rng) -> dict:
     """polymul at the value-layer path's shapes (1001 x 1001: two COUNT
     PGFs of 1,000 tuples; 401 x 801: the first product of the grouped SUM)
-    and beyond mul_sum's window (1024 x 1024, 128 x 1024, 16,384 x 16,384),
-    beside conv1d (``library_ms``, TF32 off) and the port's
-    ``fft_convolve`` (``fft_ms``).  Held against the plain version in
-    float64 relative to the per-output scale sum_u |a_u||b_{t-u}| (the
-    inputs are nonnegative, so the scale is the product itself): float32
-    accumulation in increasing u over K terms errs by about
-    eps * sqrt(K) / 6, 1.3e-6 at K = 16,384, so the tolerance is 2e-5.
-    Two runs must give the same bits."""
+    and beyond mul_sum's window (1024 x 1024, 128 x 1024, 16,384 x 16,384;
+    32,768 x 32,768, where ``tiling`` walks several chunks a slice), then
+    at the edge shapes (``polymul_edge_shapes``, a of mixed sign), beside
+    conv1d (``library_ms``, TF32 off) and the port's ``fft_convolve``
+    (``fft_ms``).  Held against the plain version in float64 relative to
+    the per-output scale sum_u |a_u||b_{t-u}|: float32 accumulation in
+    increasing u over K terms errs by about eps * sqrt(K) / 6, 1.3e-6 at
+    K = 16,384, so the tolerance is 2e-5.  Two runs must give the same
+    bits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import pgf
     from repro_torch.kernels import polymul
     shapes = []
-    for na, nb in ((1001, 1001), (401, 801), (1024, 1024), (128, 1024),
-                   (16_384, 16_384)):
-        a = put(rng.uniform(0, 1, na), torch.float32)
+    cases = [(na, nb, 0) for na, nb in ((1001, 1001), (401, 801),
+                                        (1024, 1024), (128, 1024),
+                                        (16_384, 16_384), (32_768, 32_768))]
+    cases += [(na, nb, -1) for na, nb in polymul_edge_shapes()]
+    for na, nb, a_lo in cases:
+        a = put(rng.uniform(a_lo, 1, na), torch.float32)
         b = put(rng.uniform(0, 1, nb), torch.float32)
         run = lambda: polymul.polymul(a, b)
-        t = timings("polymul", run, 20)
+        tl = polymul.tiling(na, nb)
+        t = timings("polymul", run, 20, per_call=1 if tl.cluster else 2)
         got = run()
         check(bit_equal(got, run()), f"polymul {na}x{nb}: rerun not bit-equal")
         want = polymul.polymul_plain(a.double(), b.double())
+        scale = polymul.polymul_plain(a.double().abs(), b.double())
         err = (got.double() - want).abs()
-        rel = float((err / want.clamp(min=1e-300)).max())
+        rel = float((err / scale.clamp(min=1e-300)).max())
         reps = 2 if na * nb > 1 << 24 else 10
         plain_ms = cuda_ms(lambda: polymul.polymul_plain(a, b), reps)
         conv_ms = cuda_ms(lambda: F.conv1d(
             a[None, None], b.flip(0)[None, None], padding=nb - 1), 20)
         fft_ms = cuda_ms(lambda: pgf.fft_convolve(a, b), 20)
         bd = bound_ms(4 * (2 * na + 2 * nb - 1), 2 * na * nb)
-        print(f"polymul {na}x{nb}: kernel {t['ms']:.4f} ms, wrapper "
-              f"{t['wrapper_ms']:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); "
-              f"plain {plain_ms:.4f} ms, conv1d {conv_ms:.4f} ms, "
-              f"fft_convolve {fft_ms:.4f} ms; max err / scale {rel:.3e} "
-              "(tolerance 2e-5); bit-equal rerun")
+        print(f"polymul {na}x{nb}{' (a of mixed sign)' if a_lo else ''}: "
+              f"kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, "
+              f"bound {bd[0]:.3g} ms ({bd[1]}); plain {plain_ms:.4f} ms, "
+              f"conv1d {conv_ms:.4f} ms, fft_convolve {fft_ms:.4f} ms; max "
+              f"err / scale {rel:.3e} (tolerance 2e-5); bit-equal rerun; "
+              f"{tl.threads} threads, {tl.n_tiles} tiles x {tl.n_slices} "
+              f"slices of {tl.slice}, "
+              + (f"clusters of {tl.cluster}" if tl.cluster else "fold kernel"))
         check(rel <= 2e-5, f"polymul {na}x{nb} disagrees with its plain "
               f"version: {rel}")
         shapes.append(dict(shape=f"{na}x{nb}", **t, plain_ms=plain_ms,
                            library_ms=conv_ms, fft_ms=fft_ms, bound_ms=bd[0],
                            bound_by=bd[1], max_abs_err=float(err.max()),
-                           max_err_over_scale=rel))
+                           max_err_over_scale=rel, mixed_sign=bool(a_lo),
+                           tiling=tl._asdict()))
+        if (na, nb) == (1001, 1001):
+            print(against_earlier("polymul", t))
     return dict(shapes[0], max_abs_err=max(r["max_abs_err"] for r in shapes),
                 shapes=shapes)
+
+
+def polymul_routes(put, rng) -> dict:
+    """polymul's two routes on the same inputs, through the C entry (no
+    wrapper, so no launch counted): the cluster route (one launch) and the
+    two-launch route (scratch and fold kernel), each with the partition
+    ``polymul.tiling`` gives it, at 1001 x 1001 and around the size where
+    the wrapper switches (``polymul.WIDE_BLOCKS_FROM``: 8192^2 below it,
+    16,384^2 above); each held to 2e-5 of the scale.  On the same
+    partition (the cluster route's) the two routes must give the same
+    bits."""
+    import torch
+    from repro_torch.kernels import build, polymul
+    out = {}
+    for na, nb in ((1001, 1001), (8192, 8192), (16_384, 16_384)):
+        a = put(rng.uniform(0, 1, na), torch.float32)
+        b = put(rng.uniform(0, 1, nb), torch.float32)
+        c = torch.empty(na + nb - 1, dtype=torch.float32, device=a.device)
+        want = polymul.polymul_plain(a.double(), b.double())
+
+        def launch(tl, cluster):
+            partial = None if cluster else torch.empty(
+                tl.n_slices * tl.pitch, dtype=torch.float32, device=a.device)
+            return lambda: build.launch(
+                "polymul_launch", a.data_ptr(), b.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                c.data_ptr(), na, nb, tl.threads, tl.slice, tl.chunk,
+                cluster, build.stream_handle(a.device))
+
+        got, ms = {}, {}
+        keep = polymul.WIDE_BLOCKS_FROM
+        for route, wide_from in (("cluster", 1 << 62), ("two_launches", 0)):
+            polymul.WIDE_BLOCKS_FROM = wide_from
+            try:
+                tl = polymul.tiling(na, nb)
+            finally:
+                polymul.WIDE_BLOCKS_FROM = keep
+            fn = launch(tl, tl.cluster)
+            ms[route] = timings("polymul", fn, 20,
+                                per_call=1 if tl.cluster else 2)["ms"]
+            fn()
+            got[route] = c.clone()
+            rel = float(((got[route].double() - want).abs()
+                         / want.clamp(min=1e-300)).max())
+            check(rel <= 2e-5, f"polymul {na}x{nb} {route}: {rel}")
+            if route == "cluster":
+                launch(tl, 0)()      # the fold kernel on this partition
+                check(bit_equal(got[route], c), f"polymul {na}x{nb}: the "
+                      "two routes differ on the same partition")
+        chosen = "cluster" if polymul.tiling(na, nb).cluster \
+            else "two_launches"
+        print(f"polymul {na}x{nb} routes: cluster {ms['cluster']:.4f} ms, "
+              f"two launches {ms['two_launches']:.4f} ms (the wrapper takes "
+              f"{chosen.replace('_', ' ')}); both within 2e-5 of the scale; "
+              "the same bits on the same partition")
+        out[f"{na}x{nb}"] = dict(ms, chosen=chosen)
+    return out
 
 
 # -------------------------------------------------------------------- path

@@ -42,8 +42,8 @@ SIGNATURES = {
     # p, v, g_sorted, bounds, partial, out, n, slots, num_groups, orders,
     # stream
     "group_cumulant_sums_launch": [P, P, P, P, P, P, I, I, I, I, P],
-    # a, b, c, na, nb, stream
-    "polymul_launch": [P, P, P, I, I, P],
+    # a, b, partial, c, na, nb, threads, slice, chunk, cluster, stream
+    "polymul_launch": [P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _LIB: dict = {}

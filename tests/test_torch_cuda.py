@@ -187,10 +187,17 @@ def test_cuda_polymul_matches_plain(cuda_device):
     """The polynomial-product kernel against its plain version in float64
     on the card, relative to the per-output scale sum_u |a_u||b_{t-u}|
     (float32 accumulation over at most 3000 terms: ~1e-6), bit-equal on a
-    rerun, and its launches counted."""
+    rerun, and its launches counted (one per call).  The shapes include
+    those at a tile or slice boundary of ``polymul.tiling`` and one past
+    either side (tests/test_torch_polymul.py), and one of the two-launch
+    route (8192 x 16,385)."""
     rng = np.random.default_rng(6)
     polymul.polymul.launches = 0
-    for na, nb in ((1, 1), (128, 1024), (1001, 1001), (3000, 257)):
+    shapes = [(1, 1), (128, 1024), (1024, 128), (1001, 1001), (3000, 257),
+              (128, 256), (128, 257), (128, 258), (31, 1000), (32, 1000),
+              (33, 1000), (959, 959), (960, 960), (961, 961), (2048, 2560),
+              (2048, 2561), (2048, 2562), (8192, 16_385)]
+    for na, nb in shapes:
         a = torch.tensor(rng.uniform(-1, 1, na), dtype=torch.float32,
                          device=cuda_device)
         b = torch.tensor(rng.uniform(0, 1, nb), dtype=torch.float32,
@@ -202,9 +209,44 @@ def test_cuda_polymul_matches_plain(cuda_device):
         scale = polymul.polymul_plain(a.double().abs(), b.double())
         assert float(((got.double() - want).abs()
                       / scale.clamp(min=1e-30)).max()) < 2e-5
-    assert polymul.polymul.launches == 8
+    assert polymul.polymul.launches == 2 * len(shapes)
     with pytest.raises(ValueError):
         polymul.polymul(a.double(), b.double())
+
+
+@pytest.mark.cuda
+def test_cuda_polymul_several_chunks_per_slice(cuda_device):
+    """The kernel's double-buffered walk over several chunks of a slice,
+    which ``tiling`` picks only for the largest products, forced at a small
+    shape through the C entry (slices of three 16-value chunks), on both
+    routes (the fold kernel; clusters of 16), against the plain version in
+    float64, the two routes bit-equal; a partition the entry does not take
+    is refused."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(7)
+    na, nb = 200, 300
+    a = torch.tensor(rng.uniform(-1, 1, na), dtype=torch.float32,
+                     device=cuda_device)
+    b = torch.tensor(rng.uniform(0, 1, nb), dtype=torch.float32,
+                     device=cuda_device)
+    partial = torch.empty(5 * 768, dtype=torch.float32, device=cuda_device)
+    c = torch.empty(na + nb - 1, dtype=torch.float32, device=cuda_device)
+    stream = build.stream_handle(cuda_device)
+    want = polymul.polymul_plain(a.double(), b.double())
+    scale = polymul.polymul_plain(a.double().abs(), b.double())
+    got = []
+    for cluster in (0, 16):
+        build.launch("polymul_launch", a.data_ptr(), b.data_ptr(),
+                     partial.data_ptr(), c.data_ptr(), na, nb, 32, 48, 16,
+                     cluster, stream)
+        assert float(((c.double() - want).abs() / scale).max()) < 2e-5
+        got.append(c.clone())
+    assert torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
+    for slice_, cluster in ((40, 0), (48, 8), (48, 1)):
+        with pytest.raises(RuntimeError):
+            build.launch("polymul_launch", a.data_ptr(), b.data_ptr(),
+                         partial.data_ptr(), c.data_ptr(), na, nb, 32,
+                         slice_, 16, cluster, stream)
 
 
 def _cumulant_rel_err(got, p, v, g, num_groups, orders):
@@ -350,9 +392,10 @@ def test_cuda_cumulants_nan(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_cumulants_no_host_sync(cuda_device):
-    """Neither wrapper synchronises the host, on either grouped route: run
-    under torch.cuda.set_sync_debug_mode("error") after one warm-up call
-    (which builds and loads the kernels)."""
+    """Neither cumulant wrapper synchronises the host, on either grouped
+    route, nor does polymul (its scratch comes from the caching allocator):
+    run under torch.cuda.set_sync_debug_mode("error") after one warm-up
+    call (which builds and loads the kernels)."""
     rng = np.random.default_rng(12)
     dev = cuda_device
     n = 50_000
@@ -364,7 +407,8 @@ def test_cuda_cumulants_no_host_sync(cuda_device):
              lambda: group_cumulants.group_cumulant_sums(
                  p, v, g8, num_groups=8),
              lambda: group_cumulants.group_cumulant_sums(
-                 p, v, g, num_groups=3000))
+                 p, v, g, num_groups=3000),
+             lambda: polymul.polymul(p[:1001], v[:1001]))
     for fn in calls:
         fn()
     torch.cuda.synchronize()
