@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's resident TPC-H path and its value layer on one
-NVIDIA card.
+"""Drive the PyTorch port's resident TPC-H path, its streamed
+(out-of-core) path and its value layer on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Five phases, each of which raises on a failed check (exit code != 0):
+Seven phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -35,14 +35,31 @@ Five phases, each of which raises on a failed check (exit code != 0):
    ``num_freq=4096`` and Q18 ``method="exact"``) through the port's entry
    points, read the counters, and check bit-equal reruns and
    kernel-independent cross-checks.  Then time and profile the queries.
-4. Value-layer path, at the paper's sizes: exact COUNT of 10^8 tuples
+4. Streamed path at SF1: lineitem as a host table (numpy, pinned slab
+   buffers), Q1/Q3/Q6/Q18/Q20 in aggregate mode plus Q6 exact and Q18
+   exact with ``STREAM_OPTS`` (4 waves of 2 canonical chunks; orders and
+   partsupp resident): the counters reset, each query once, the counters
+   read; each result bit-equal to its resident run and each query's
+   launches equal to its resident run's; wall ms, slabs, bytes, copy
+   rate and peak device memory printed.  Q6 exact again from
+   memory-mapped columns (``HostTable.save`` / ``open``).  Then the fault
+   and retry checks: a transient slab-copy fault resumes bit-equal; a
+   persistent one converges by wave halving (``run_plan``); ``run_plan``
+   on ``q18_topk`` with a too-small kappa and max_groups converges; each
+   converged result equals a first run at its ``final_params``.
+5. Value-layer path, at the paper's sizes: exact COUNT of 10^8 tuples
    (Fig. 9) in float32 and float64, its gamma-mixture and Normal fits
    (Fig. 10), exact SUM over the SF1 lineitem, ``q18_topk`` at SF1 with
    kappa 8 and 2, and two schoolbook products; one warm-up, then the
    counters reset, every call timed, the counters read; moment, mass,
    tail and bit-equal-rerun checks.
-5. Small size (n_orders=2000): both paths on the CPU's plain versions
+6. Small size (n_orders=2000): both paths on the CPU's plain versions
    against the card's kernels.
+7. Streamed at SF10 cardinalities (60,000,000 lineitem rows on the
+   host, 32 canonical chunks, 16 waves of 2): Q1 aggregate and Q6 exact
+   double-buffered and synchronous, the host->device copy rate beside a
+   plain pinned ``copy_`` of one slab, the peak device memory against the
+   resident run of the same query, bit-equal to it.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -69,6 +86,8 @@ CHUNK = 750_000               # tuples of one canonical chunk at SF1
 Q3_GROUPS = 262_144
 Q18_GROUPS = 1_500_000
 Q18_EXACT_OPTS = dict(cf_budget_elems=1 << 28)
+Q18_NORMAL_GROUPS = 2_097_152
+Q20_GROUPS = 131_072
 #: minimum launches of each kernel in one run of the main path.
 MIN_LAUNCHES = {"group_cumulant_sums": 16, "cumulant_sums": 8, "logcf": 8,
                 "group_logcf": 24}
@@ -79,6 +98,30 @@ VALUE_LAUNCHES = {"logcf": 6, "group_logcf": 0, "cumulant_sums": 1,
                   "group_cumulant_sums": 0, "polymul": 2}
 FIG9_N = 100_000_000
 Q18_TOPK_GROUPS = 2_097_152
+#: The streamed SF1 path: lineitem (6,000,000 rows, 750,000 a canonical
+#: chunk) streams from a HostTable; orders (1,500,000 rows) and partsupp
+#: (800,000), the build sides of Q3 and Q20, stay resident under the
+#: budget; waves of 2 canonical chunks: SF1_WAVES waves a phase.
+STREAM_OPTS = dict(device_row_budget=2_000_000, stream_wave_chunks=2)
+SF1_WAVES = 4
+#: the kernels the streamed path runs (polymul is the value layer's).
+STREAM_KERNELS = ("logcf", "group_logcf", "cumulant_sums",
+                  "group_cumulant_sums")
+#: The larger scale: TPC-H SF10's orders and lineitem (15,000,000 orders,
+#: 60,000,000 lineitem rows) as host tables, on a grid of 32 canonical
+#: chunks (1,875,000 rows each); n_parts stays at SF1's 200,000 and
+#: n_suppliers at 1,000 (PERF.md §4).
+SF10 = dict(n_orders=15_000_000, lines_per_order=4, n_parts=200_000,
+            n_suppliers=1_000, n_customers=1_500_000, n_nations=25, seed=0)
+SF10_CHUNKS = 32
+#: device_row_budget of each SF10 query, in canonical chunks' rows, for
+#: waves of 2 chunks (16 waves): a pruned slab of c of lineitem's 10
+#: columns (+ p, valid) is (c + 2) / 12 of a full row, and a wave takes
+#: (budget / width) // (2 chunks) chunks (db/cost.py wave_schedule).  Q1
+#: reads 5 columns (2.8 * 12 / 7 = 4.8 chunks), Q6 exact 3 (2.0 * 12 / 5):
+#: 5,250,000 and 3,750,000 rows.
+SF10_BUDGET_CHUNKS = {"q1/aggregate": 2.8, "q6/aggregate_exact": 2.0}
+SF10_WAVES = 16
 #: what each kernel replaces on the TPU.
 REPLACES = {
     "logcf": "src/repro/kernels/pb_cf.py:41",
@@ -922,9 +965,9 @@ def run_queries(db, sf1: bool) -> dict:
                                                    max_groups=q3_groups)
         out[f"q6/{mode}"] = lambda m=mode: tpch.q6(db, m)
         out[f"q18/{mode}"] = lambda m=mode: tpch.q18(
-            db, m, max_groups=2_097_152 if sf1 else 2048)
+            db, m, max_groups=Q18_NORMAL_GROUPS if sf1 else 2048)
         out[f"q20/{mode}"] = lambda m=mode: tpch.q20(
-            db, m, max_groups=131_072 if sf1 else 1024)
+            db, m, max_groups=Q20_GROUPS if sf1 else 1024)
     out["q6/aggregate_exact"] = lambda: tpch.q6(db, "aggregate",
                                                 num_freq=4096)
     out["q18/aggregate_exact"] = lambda: tpch.q18(
@@ -1115,7 +1158,7 @@ def fig9_probs(dev):
 
 
 def value_path(db, p) -> dict:
-    """The value layer at the paper's sizes (module docstring, phase 4),
+    """The value layer at the paper's sizes (module docstring, phase 5),
     on the 10^8 tuples ``p`` of :func:`fig9_probs`."""
     import numpy as np
     import torch
@@ -1280,7 +1323,7 @@ def value_path(db, p) -> dict:
 
 
 def value_small(device: str) -> dict:
-    """The value layer at n_orders=2000 on one device (phase 5)."""
+    """The value layer at n_orders=2000 on one device (phase 6)."""
     from repro_torch.core import poisson_binomial as pb
     from repro_torch.db import tpch
     db = tpch.generate(n_orders=2000, seed=0, device=device)
@@ -1345,6 +1388,278 @@ def compare_small(cpu, gpu) -> dict:
             check(err <= 2e-4, f"{name}{pa}: CPU vs card {err}")
             worst = max(worst, err)
     return dict(max_rel=worst, cumulant_orders_above_4_rel=worst_high)
+
+
+# -------------------------------------------------------------- streamed
+def timed(fn) -> tuple:
+    """(result, wall ms) of one call that ends in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def streamed_queries(db, opts) -> dict:
+    """The streamed path's queries: each TPC-H query in aggregate mode and
+    the two exact variants, with the SF1 phase's group capacities, and
+    ``opts`` added to their plan options (None: the resident runs)."""
+    from repro_torch.db import tpch
+    kw = {} if opts is None else dict(plan_opts=opts)
+    return {
+        "q1/aggregate": lambda: tpch.q1(db, "aggregate", **kw),
+        "q3/aggregate": lambda: tpch.q3(db, "aggregate",
+                                        max_groups=Q3_GROUPS, **kw),
+        "q6/aggregate": lambda: tpch.q6(db, "aggregate", **kw),
+        "q18/aggregate": lambda: tpch.q18(db, "aggregate",
+                                          max_groups=Q18_NORMAL_GROUPS, **kw),
+        "q20/aggregate": lambda: tpch.q20(db, "aggregate",
+                                          max_groups=Q20_GROUPS, **kw),
+        "q6/aggregate_exact": lambda: tpch.q6(db, "aggregate",
+                                              num_freq=4096, **kw),
+        "q18/aggregate_exact": lambda: tpch.q18(
+            db, "aggregate", method="exact", max_groups=Q18_GROUPS,
+            num_freq=256, plan_opts=dict(Q18_EXACT_OPTS, **(opts or {}))),
+    }
+
+
+def stream_line(label: str, ms: float, st: dict, peak: int) -> dict:
+    """Print and return one streamed run's numbers: wall ms, slabs
+    shipped, bytes, host slicing s, device copy s and its rate."""
+    gbs = st["slab_bytes"] / st["copy_s"] / 1e9 if st["copy_s"] else 0.0
+    print(f"{label}: {ms:.1f} ms, {st['waves']} slabs "
+          f"({st['slab_bytes'] / 1e9:.3f} GB), slicing "
+          f"{st['slice_s'] * 1e3:.1f} ms, host->device copies "
+          f"{st['copy_s'] * 1e3:.1f} ms ({gbs:.2f} GB/s), peak device "
+          f"memory {peak / 1e9:.3f} GB above the start")
+    return dict(wall_ms=ms, h2d_gb_s=gbs, peak_bytes=peak, **st)
+
+
+def run_streamed(fn) -> tuple:
+    """(result, wall ms, stream_stats, peak device bytes above the start)
+    of one streamed call."""
+    import torch
+    from repro_torch.db import plans
+    plans.reset_stream_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed(fn)
+    return out, ms, plans.stream_stats(), \
+        torch.cuda.max_memory_allocated() - base
+
+
+def streamed_phase(db, out_dir) -> dict:
+    """Phase 4 (module docstring): the streamed SF1 path against the
+    resident runs, disk-backed Q6 exact, the fault and retry checks."""
+    import shutil
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.db.table import HostTable
+    from repro_torch.kernels import ops
+    host = tpch.TPCH(**dict(db.tables(),
+                            lineitem=HostTable.from_table(db.lineitem)),
+                     scale=db.scale)
+    report = {}
+    ref, ref_launches, ref_ms, ref_peak = {}, {}, {}, {}
+    for name, fn in streamed_queries(db, None).items():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ref[name], ref_ms[name] = timed(fn)
+        ref_launches[name] = ops.launches()
+        ref_peak[name] = torch.cuda.max_memory_allocated() - base
+    # The streamed path: counters at 0, every query once, counters read.
+    rows = {}
+    ops.reset_launches()
+    for name, fn in streamed_queries(host, STREAM_OPTS).items():
+        before = ops.launches()
+        got, ms, st, peak = run_streamed(fn)
+        launched = {k: v - before[k] for k, v in ops.launches().items()}
+        check_finite(f"streamed {name}", got)
+        check(bit_equal(ref[name], got),
+              f"streamed {name} is not bit-equal to its resident run")
+        check(launched == ref_launches[name],
+              f"streamed {name} launches {launched}, resident "
+              f"{ref_launches[name]}")
+        check(st["waves"] == 2 * SF1_WAVES, f"streamed {name}: {st}")
+        rows[name] = stream_line(
+            f"SF1 streamed {name} (resident {ref_ms[name]:.1f} ms, peak "
+            f"{ref_peak[name] / 1e9:.3f} GB above the start)", ms, st, peak)
+        rows[name].update(resident_ms=ref_ms[name], launches=launched,
+                          resident_peak_bytes=ref_peak[name])
+    launches = ops.launches()
+    print(f"streamed-path launches: {launches} (each query's equal to its "
+          "resident run's); streamed == resident bit for bit: ok")
+    for k in STREAM_KERNELS:
+        check(launches[k] > 0, f"{k} not launched on the streamed path")
+    report.update(queries=rows, launches=launches)
+
+    disk = out_dir / "lineitem_sf1"
+    HostTable.from_table(db.lineitem).save(str(disk))
+    try:
+        mapped = tpch.TPCH(**dict(db.tables(),
+                                  lineitem=HostTable.open(str(disk))),
+                           scale=db.scale)
+        got, ms, st, peak = run_streamed(lambda: tpch.q6(
+            mapped, "aggregate", num_freq=4096, plan_opts=STREAM_OPTS))
+        check(bit_equal(ref["q6/aggregate_exact"], got),
+              "disk-backed streamed Q6 exact is not bit-equal")
+        report["q6_exact_memmap"] = stream_line(
+            "SF1 streamed q6/aggregate_exact from memory-mapped columns",
+            ms, st, peak)
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+    report["faults"] = fault_phase(db, host, ref)
+    return report
+
+
+def fault_phase(db, host, ref) -> dict:
+    """The fault and retry checks at SF1: a transient slab-copy fault
+    resumes bit-equal; a persistent one converges by wave halving; a
+    too-small kappa and max_groups converge on q18_topk; each converged
+    result equals a first run at its final_params."""
+    from repro_torch.db import tpch
+    from repro_torch.db.plans import RetryPolicy, compile_plan, run_plan
+    from repro_torch.testing import faults
+    report = {}
+    # 4 waves a phase: occurrence 5 is phase B, wave 1
+    with faults.inject(faults.FaultPlan(transfer_calls={5})) as fp:
+        got = tpch.q1(host, "aggregate", plan_opts=STREAM_OPTS)
+    (i, w), = [(i, w) for i, w, _r, f in fp.log if f]
+    check(fp.consumed() and fp.log[i + 1][1] == w, f"fault log {fp.log}")
+    check(bit_equal(ref["q1/aggregate"], got),
+          "Q1 after a transient slab-copy fault is not bit-equal")
+    print(f"transient fault at copy {i} (wave {w}): re-shipped wave {w} "
+          f"only, {len(fp.log)} copies, result bit-equal")
+    report["transient"] = dict(log=fp.log)
+
+    root = tpch.q1_plan()
+    opts = dict(device_row_budget=STREAM_OPTS["device_row_budget"])
+    # waves of 4 chunks (3,000,000 rows) fail every time, 2 chunks pass
+    chunk_rows = db.lineitem.capacity // 8
+    with faults.inject(faults.FaultPlan(transfer_rows_over=3 * chunk_rows)):
+        out, rep = run_plan(root, host.tables(),
+                            policy=RetryPolicy(max_attempts=4),
+                            stream_wave_chunks=4, **opts)
+    fin = rep.final_params
+    check(rep.waves["attempts"] == 2 and fin["stream_wave_chunks"] == 2,
+          f"wave halving: {rep.waves} {fin}")
+    first = compile_plan(root, stream_wave_chunks=fin["stream_wave_chunks"],
+                         **opts)(host.tables())
+    check(bit_equal(first, out) and bit_equal(
+        compile_plan(root)(db.tables()), out),
+        "wave-halved Q1 differs from a first run at final_params")
+    print(f"wave halving: {rep.waves['attempts']} attempts, final_params "
+          f"{fin}, bit-equal to a first run at final_params and to resident")
+    report["wave_halving"] = dict(waves=rep.waves, final_params=fin)
+
+    # max_groups 2^20 for 1,500,000 orders of 4 lines: both escalate once
+    groups, kappa = 1 << (db.scale["n_orders"].bit_length() - 1), 2
+    out, rep = run_plan(tpch.q18_topk_plan(groups, kappa), db.tables(),
+                        policy=RetryPolicy(max_attempts=3))
+    fin = rep.final_params
+    check(rep.issues() == {} and rep.waves["attempts"] == 2
+          and fin["kappa_scale"] == 2 and fin["groups_scale"] == 2,
+          f"q18_topk escalation: {rep.waves} {fin} {rep.issues()}")
+    first = compile_plan(tpch.q18_topk_plan(
+        groups * fin["groups_scale"], kappa * fin["kappa_scale"]))(
+        db.tables())
+    check(bit_equal(first, out),
+          "escalated q18_topk differs from a first run at final_params")
+    print(f"q18_topk escalation (max_groups {groups}, kappa {kappa}): "
+          f"{rep.waves['attempts']} attempts, final_params {fin}, clean, "
+          "bit-equal to a first run at final_params")
+    report["q18_topk_escalation"] = dict(waves=rep.waves, final_params=fin)
+    return report
+
+
+def pinned_copy_gbs(nbytes: int, reps: int = 16) -> float:
+    """The link's own rate: GB/s of ``copy_`` from a pinned host buffer of
+    ``nbytes`` to the card (CUDA events over ``reps`` copies)."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    stop.record()
+    torch.cuda.synchronize()
+    return nbytes * reps / (start.elapsed_time(stop) / 1e3) / 1e9
+
+
+def sf10_phase() -> dict:
+    """Phase 7 (module docstring): Q1 aggregate and Q6 exact streamed
+    from SF10 host tables, double-buffered and synchronous, against the
+    resident runs of the same queries on the same grid."""
+    import numpy as np
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.db.table import HostTable
+    t0 = time.perf_counter()
+    arrays, scale = tpch.generate_numpy(**SF10)
+    hosts = {name: HostTable(a["columns"], a["prob"].astype(np.float32))
+             for name, a in arrays.items()}
+    del arrays
+    gen_s = time.perf_counter() - t0
+    li = hosts["lineitem"]
+    print(f"SF10 host tables: lineitem {li.capacity} rows, orders "
+          f"{hosts['orders'].capacity} rows, {gen_s:.1f} s")
+    db = tpch.TPCH(**hosts, scale=scale)
+    queries = {
+        "q1/aggregate": lambda d, o: tpch.q1(d, "aggregate", plan_opts=o),
+        "q6/aggregate_exact": lambda d, o: tpch.q6(
+            d, "aggregate", num_freq=4096, plan_opts=o)}
+    report = dict(generate_s=gen_s, queries={})
+    got = {}
+    chunk_rows = -(-li.capacity // SF10_CHUNKS)
+    for name, q in queries.items():
+        opts = dict(canonical_chunks=SF10_CHUNKS, device_row_budget=int(
+            SF10_BUDGET_CHUNKS[name] * chunk_rows))
+        row = {}
+        for label, o in (("double-buffered", opts),
+                         ("synchronous", dict(opts,
+                                              stream_double_buffer=False))):
+            got[name, label], ms, st, peak = run_streamed(
+                lambda q=q, o=o: q(db, o))
+            check(st["waves"] == 2 * SF10_WAVES, f"SF10 {name}: {st}")
+            row[label] = stream_line(f"SF10 streamed {name} {label}", ms,
+                                     st, peak)
+        check(bit_equal(got[name, "double-buffered"],
+                        got[name, "synchronous"]),
+              f"SF10 {name}: synchronous run differs")
+        wave = row["double-buffered"]["slab_bytes"] // (2 * SF10_WAVES)
+        row["pinned_copy_gb_s"] = pinned_copy_gbs(wave)
+        print(f"SF10 {name}: plain pinned copy_ of one slab ({wave} bytes) "
+              f"{row['pinned_copy_gb_s']:.2f} GB/s; streamed copies "
+              f"{row['double-buffered']['h2d_gb_s']:.2f} GB/s; "
+              f"double-buffered {row['double-buffered']['wall_ms']:.1f} ms "
+              f"vs synchronous {row['synchronous']['wall_ms']:.1f} ms")
+        report["queries"][name] = row
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    resident = tpch.TPCH(**dict(hosts, lineitem=li.to_table("cuda")),
+                         scale=scale)
+    for name, q in queries.items():
+        ref, ms = timed(lambda q=q: q(resident, dict(
+            canonical_chunks=SF10_CHUNKS)))
+        peak = torch.cuda.max_memory_allocated() - base
+        check_finite(f"SF10 resident {name}", ref)
+        check(bit_equal(ref, got[name, "double-buffered"]),
+              f"SF10 streamed {name} is not bit-equal to resident")
+        print(f"SF10 resident {name}: {ms:.1f} ms, peak device memory "
+              f"{peak / 1e9:.3f} GB (lineitem on the card included); "
+              "streamed == resident bit for bit")
+        report["queries"][name]["resident"] = dict(wall_ms=ms,
+                                                   peak_bytes=peak)
+        torch.cuda.reset_peak_memory_stats()
+    return report
 
 
 def profile_query(name: str, fn) -> dict:
@@ -1467,6 +1782,9 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
+    report["streamed_sf1"] = streamed_phase(db, out_dir)
+    torch.cuda.empty_cache()
+
     report["value_layer"] = value_path(db, p9)
     del db, p9
     torch.cuda.empty_cache()
@@ -1490,15 +1808,21 @@ def main() -> int:
           f"kernels: max err / scale {small_values['max_rel']:.3e} "
           "(tolerance 2e-4; values, validity and group ids equal)")
 
-    # launches: the TPC-H path's run plus the value-layer path's run.
+    report["sf10"] = sf10_phase()
+    torch.cuda.empty_cache()
+
+    # launches: the runs of the TPC-H path, the value-layer path and the
+    # streamed path.
     value_launches = report["value_layer"]["launches"]
+    stream_launches = report["streamed_sf1"]["launches"]
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
                  "group_cumulant_sums", "polymul"):
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name],
-                            launches=launches[name] + value_launches[name],
+                            launches=launches[name] + value_launches[name]
+                            + stream_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -689,6 +689,72 @@ def accumulate_chunk_states(udas, probs, values=None, gids=None, *,
     return parts
 
 
+class ChunkStateAccumulator:
+    """Cross-wave chunk-state collection: the out-of-core entry point of
+    the canonical chunk contract.
+
+    The streamed executor (``db/plans.py``) computes per-canonical-chunk
+    states one WAVE at a time (:func:`accumulate_chunk_states` over the
+    wave's slab).  This accumulator files each wave's states under their
+    global canonical chunk ids, drops padding slots (ids at or past
+    ``num_chunks``: the wave schedule's tail, whose states are
+    identities), and runs the ONE :func:`tree_fold` over exactly the
+    ``num_chunks`` canonical leaves.  Each chunk's state depends on that
+    chunk's rows alone and the fold tree on the leaf count alone, so the
+    result is the same bits as :func:`accumulate_chunked` on the resident
+    table, for any wave schedule.
+
+    The fold advances as the chunks arrive in order (waves stream in chunk
+    order): the pairwise tree over the largest power-of-two prefix is
+    built as a stack of subtree roots, each merge taking the same two
+    operands in the same order as :func:`tree_fold`, and the tail leaves
+    fold into it one by one.  So a pass holds O(log num_chunks) chunk
+    states between waves, not one per chunk."""
+
+    def __init__(self, udas: dict, num_chunks: int):
+        self.udas = udas
+        self.num_chunks = num_chunks
+        self._base = 1 << (num_chunks.bit_length() - 1)  # pow2 prefix
+        self._pending: dict = {}     # filed, not yet folded: id -> states
+        self._next = 0               # the next chunk id the fold takes
+        self._stack: list = []       # (subtree height, states) of the base
+
+    def _merge(self, a: dict, b: dict) -> dict:
+        return {name: u.merge(a[name], b[name])
+                for name, u in self.udas.items()}
+
+    def add_wave(self, chunk_ids, parts: list) -> None:
+        """File one wave's per-chunk state dicts under their global
+        canonical chunk ids (parallel lists).  Waves partition the chunk
+        slots, so filing a chunk twice is an error of the caller."""
+        for g, st in zip(chunk_ids, parts):
+            if g < self.num_chunks:
+                if g < self._next or g in self._pending:
+                    raise RuntimeError(f"canonical chunk {g} filed twice")
+                self._pending[g] = st
+        while self._next in self._pending:
+            st = self._pending.pop(self._next)
+            if self._next < self._base:
+                height = 0
+                while self._stack and self._stack[-1][0] == height:
+                    st = self._merge(self._stack.pop()[1], st)
+                    height += 1
+                self._stack.append((height, st))
+            else:                   # tail leaf: out = merge(out, leaf)
+                self._stack[0] = (self._stack[0][0],
+                                  self._merge(self._stack[0][1], st))
+            self._next += 1
+
+    def fold(self) -> dict:
+        """The canonical fold over all collected chunks (after the last
+        wave)."""
+        if self._next < self.num_chunks:
+            missing = [g for g in range(self._next, self.num_chunks)
+                       if g not in self._pending]
+            raise RuntimeError(f"canonical chunks never streamed: {missing}")
+        return self._stack[0][1]
+
+
 def accumulate_chunked(udas, probs, values=None, gids=None, *,
                        max_groups: int = 1, num_chunks: int = 8,
                        block: int = 8192, cf_operands=None):

@@ -3,10 +3,10 @@ sharded relational frontend — the port's copy of ``repro.db.physical``,
 which is free of JAX but imported through a package that is not.
 
 The port's executor (``repro_torch.db.plans``) runs the single-device
-lowering (``sharded=False``: ShardScan / Select / Map / GatherJoin /
-PartialAgg + MergeAgg); the sharded, exchange and streamed strategies are
-lowered and explained here exactly as in the reference, and their
-execution waits for the multi-rank and streaming slices of the port.
+lowering (``sharded=False``: ShardScan / StreamedScan / Select / Map /
+GatherJoin / PartialAgg + MergeAgg); the sharded and exchange strategies
+are lowered and explained here exactly as in the reference, and their
+execution waits for the multi-rank slice of the port.
 
 ``repro_torch.db.plans.compile_plan`` splits compilation into two stages:
 

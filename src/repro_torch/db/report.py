@@ -1,0 +1,197 @@
+"""Structured run diagnostics (port of ``repro.db.report``): the
+:class:`ExecutionReport` returned beside the result of every
+``compile_plan(..., with_report=True)`` run.
+
+Every detection signal of a run leaves it here, so callers (and the
+escalating retry controller :func:`repro_torch.db.plans.run_plan`) can
+diagnose a run instead of squinting at NaNs:
+
+    exchange_overflow   per exchange leg: rows dropped for static bucket
+                        capacity
+    exchange_demand     per exchange leg: the observed peak per-(sender,
+                        owner) send demand
+    exchange_capacity   per exchange leg: the static bucket capacity
+                        (the three exchange fields stay empty until the
+                        multi-rank slice of the port, which has exchanges
+                        and records them)
+    group_overflow      per aggregation pass: live rows whose group code
+                        was dropped past ``max_groups``
+    tail_mass           per MIN/MAX aggregate: the per-group §V-B.2
+                        truncation mass, exactly 0 when ``kappa`` covers
+                        every distinct value
+    state_nan           per aggregate state: NaN count in the FOLDED UDA
+                        state (MinMax +inf padding and the -inf of p = 1
+                        tuples are not NaN and are not counted)
+    waves               streamed runs: completed and total waves and
+                        transfer-fault retries (host ints); the retry
+                        controller adds ``attempts``
+
+The values are tensors on the run's device (``waves`` holds host ints),
+so collecting them adds no host sync to a run; :meth:`ExecutionReport.
+issues` and the other readers copy every value to the host in one
+transfer.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+#: report fields (all dicts: label -> scalar or per-group tensor).
+_FIELDS = ("exchange_overflow", "exchange_demand", "exchange_capacity",
+           "group_overflow", "tail_mass", "state_nan", "waves")
+#: the fields read back as counts; tail_mass is read as its maximum.
+_COUNTS = ("exchange_overflow", "exchange_demand", "exchange_capacity",
+           "group_overflow", "state_nan")
+
+
+@dataclasses.dataclass
+class ExecutionReport:
+    """Diagnostics of one run (see module docstring)."""
+    exchange_overflow: dict = dataclasses.field(default_factory=dict)
+    exchange_demand: dict = dataclasses.field(default_factory=dict)
+    exchange_capacity: dict = dataclasses.field(default_factory=dict)
+    group_overflow: dict = dataclasses.field(default_factory=dict)
+    tail_mass: dict = dataclasses.field(default_factory=dict)
+    state_nan: dict = dataclasses.field(default_factory=dict)
+    waves: dict = dataclasses.field(default_factory=dict)
+    #: set by the retry controller on the returned report: the compile
+    #: overrides of the final attempt ({"shuffle_slack",
+    #: "shuffle_bucket_floor", "stream_wave_chunks", "kappa_scale",
+    #: "groups_scale"}).
+    final_params: dict = dataclasses.field(default_factory=dict)
+
+    def host_values(self) -> dict:
+        """Every device value on the host, in one device->host copy:
+        {field: {label: int}} for the counts and {"tail_mass": {label:
+        max per-group mass as a float}}."""
+        keys, vals = [], []
+        for f in _COUNTS + ("tail_mass",):
+            for k, v in getattr(self, f).items():
+                t = torch.as_tensor(v)
+                if f == "tail_mass":
+                    t = t.max() if t.numel() else t.new_zeros(())
+                keys.append((f, k))
+                vals.append(t.reshape(()).to(torch.float64))
+        out = {f: {} for f in _COUNTS + ("tail_mass",)}
+        if not vals:
+            return out
+        dev = next((v.device for v in vals if v.device.type != "cpu"),
+                   torch.device("cpu"))
+        host = torch.stack([v.to(dev) for v in vals]).tolist()
+        for (f, k), x in zip(keys, host):
+            out[f][k] = x if f == "tail_mass" else int(x)
+        return out
+
+    def issues(self, tail_tol: float = 0.0) -> dict:
+        """Concrete problem summary: {} when the run is trustworthy.  Keys:
+
+        * ``"overflow"``: {exchange leg: rows dropped} (> 0 only)
+        * ``"group_overflow"``: {pass: live rows whose group was lost}
+        * ``"tail"``: {aggregate: max per-group truncation mass}, only
+          entries above ``tail_tol``
+        * ``"nan"``: {state: NaN count}, reported only when no exchange
+          overflowed (without one, the NaN came in with the data and no
+          escalation can remove it)
+        """
+        h = self.host_values()
+        out: dict = {}
+        over = {k: v for k, v in h["exchange_overflow"].items() if v > 0}
+        if over:
+            out["overflow"] = over
+        gover = {k: v for k, v in h["group_overflow"].items() if v > 0}
+        if gover:
+            out["group_overflow"] = gover
+        tails = {k: t for k, t in h["tail_mass"].items() if t > tail_tol}
+        if tails:
+            out["tail"] = tails
+        if not over:
+            nans = {k: v for k, v in h["state_nan"].items() if v > 0}
+            if nans:
+                out["nan"] = nans
+        return out
+
+    def ok(self, tail_tol: float = 0.0) -> bool:
+        return not self.issues(tail_tol)
+
+    def overflow_total(self) -> int:
+        return sum(self.host_values()["exchange_overflow"].values())
+
+    def max_tail_mass(self) -> float:
+        """Largest per-group §V-B.2 truncation mass over every MIN/MAX
+        aggregate of the run (0.0 when none ran or none truncated)."""
+        return max(self.host_values()["tail_mass"].values(), default=0.0)
+
+    def describe(self, tail_tol: float = 0.0) -> str:
+        iss = self.issues(tail_tol)
+        if not iss:
+            return "clean"
+        return "; ".join(f"{k}: {v}" for k, v in sorted(iss.items()))
+
+
+def nan_count(state):
+    """Total NaN count over the floating fields of a UDA state (a
+    NamedTuple of tensors), as an int32 tensor on the state's device.  NaN,
+    not non-finite, is the poison signal: MinMax pads values with +inf and
+    AtLeastOne reaches log1p(-1) = -inf for p = 1 tuples."""
+    leaves = [x for x in state if isinstance(x, torch.Tensor)]
+    total = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    for leaf in leaves:
+        if leaf.is_floating_point():
+            total = total + torch.isnan(leaf).sum().to(torch.int32)
+    return total
+
+
+class ReportBuilder:
+    """Collector behind one run: the executor calls the record methods as
+    the plan executes and :meth:`build` returns the
+    :class:`ExecutionReport`.  Labels come from per-kind counters in
+    execution order, so a plan's report labels are the same on every run
+    (and the same as the JAX package's)."""
+
+    def __init__(self):
+        self._counters: dict = {}
+        self._report = ExecutionReport()
+
+    def _next(self, kind: str) -> str:
+        i = self._counters.get(kind, 0)
+        self._counters[kind] = i + 1
+        return f"{kind}[{i}]"
+
+    # ---------------------------------------------- aggregation passes
+    def begin_agg(self, kind: str) -> str:
+        return self._next(f"agg:{kind}")
+
+    def group_overflow(self, label: str, count) -> None:
+        self._report.group_overflow[label] = torch.as_tensor(
+            count, dtype=torch.int32)
+
+    def tail(self, name: str, per_group) -> None:
+        self._report.tail_mass[name] = per_group
+
+    def state_nan(self, name: str, count) -> None:
+        self._report.state_nan[name] = torch.as_tensor(count,
+                                                       dtype=torch.int32)
+
+    # ------------------------------------------------------- streaming
+    def set_waves(self, completed: int, total: int, retries: int) -> None:
+        self._report.waves.update(completed=completed, total=total,
+                                  retries=retries)
+
+    # ------------------------------------------------- forked collection
+    def fork(self) -> "ReportBuilder":
+        """A child builder whose label counters CONTINUE from this one,
+        for a plan part collected apart (the reference's plan suffix under
+        its own shard_map; the multi-rank slice's ranks); :meth:`absorb`
+        merges its report back."""
+        child = ReportBuilder()
+        child._counters = dict(self._counters)
+        return child
+
+    def absorb(self, report: ExecutionReport) -> None:
+        """Merge a report produced by a forked builder."""
+        for f in _FIELDS:
+            getattr(self._report, f).update(getattr(report, f))
+
+    def build(self) -> ExecutionReport:
+        return self._report

@@ -234,6 +234,14 @@ def q18_plan(qty_threshold: float = 150.0, max_groups: int = 2048):
                            "", max_groups, threshold=float(qty_threshold))
 
 
+def q18_topk_plan(max_groups: int = 2048, kappa: int = 8):
+    """:func:`q18_topk`'s plan: per-order MAX(l_quantity) with ``kappa``
+    support values a group (the plan :func:`~repro_torch.db.plans.run_plan`
+    escalates)."""
+    return GroupAgg(Scan("lineitem"), ("l_orderkey",), "l_quantity", "MAX",
+                    max_groups, kappa=kappa)
+
+
 def _q20_r10(nation_name: int = 3, max_groups: int = 1024,
              avail_frac: float = 0.05):
     r1 = Select(Scan("part"), lambda t: t["p_name_forest"])
@@ -397,9 +405,8 @@ def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8,
     ``operators.minmax_runs``) plus the per-group ``p_empty``, ``p_tail``
     (P(no kept value present)) and ``tail_mass``.
     """
-    plan = GroupAgg(Scan("lineitem"), ("l_orderkey",), "l_quantity",
-                    "MAX", max_groups, kappa=kappa)
-    out = compile_plan(plan, **(plan_opts or {}))(db.tables())
+    out = compile_plan(q18_topk_plan(max_groups, kappa),
+                       **(plan_opts or {}))(db.tables())
     mm = out["minmax"]
     return dict(valid=out["valid"], keys=out["keys"],
                 run_group=mm["run_group"], run_value=mm["run_value"],

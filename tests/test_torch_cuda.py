@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core.approx import _bernoulli_cumulant_polys
-from repro_torch.kernels import (cumulants, group_cf, group_cumulants, pb_cf,
-                                 polymul, ref)
+from repro_torch.kernels import (cumulants, group_cf, group_cumulants, ops,
+                                 pb_cf, polymul, ref)
 
 
 @pytest.fixture
@@ -419,3 +419,111 @@ def test_cuda_cumulants_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _leaves(x, path=""):
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from _leaves(x[k], f"{path}.{k}")
+    elif isinstance(x, tuple):
+        for i, y in enumerate(x):
+            yield from _leaves(y, f"{path}[{i}]")
+    elif hasattr(x, "columns"):
+        yield from _leaves(dict(x.columns, p=x.prob, valid=x.valid), path)
+    else:
+        yield path, x
+
+
+def _assert_same_bits(ref, got):
+    a, b = list(_leaves(ref)), list(_leaves(got))
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype, path
+        if x.is_floating_point():
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+            x, y = x.view(bits), y.view(bits)
+        assert torch.equal(x, y), path
+
+
+def _streamed_queries(db, opts):
+    """Every query in aggregate mode plus the two exact variants, with
+    ``opts`` as plan_opts (None: resident)."""
+    from repro_torch.db import tpch
+    kw = dict(plan_opts=opts) if opts else {}
+    return {
+        "q1": lambda: tpch.q1(db, "aggregate", **kw),
+        "q3": lambda: tpch.q3(db, "aggregate", max_groups=512, **kw),
+        "q6": lambda: tpch.q6(db, "aggregate", **kw),
+        "q6_exact": lambda: tpch.q6(db, "aggregate", num_freq=4096, **kw),
+        "q18": lambda: tpch.q18(db, "aggregate", max_groups=2048, **kw),
+        "q18_exact": lambda: tpch.q18(
+            db, "aggregate", method="exact", max_groups=2048, num_freq=256,
+            plan_opts=dict(opts or {}, cf_budget_elems=2 * 2048 * 100)),
+        "q20": lambda: tpch.q20(db, "aggregate", max_groups=1024, **kw)}
+
+
+#: lineitem (8000 rows, 1000 a chunk) streams; orders (2000) and partsupp
+#: (800) stay resident; 3 chunks a wave leaves a ragged last wave.
+STREAM_OPTS = dict(device_row_budget=2500, stream_wave_chunks=3)
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_equals_resident(cuda_device):
+    """Every query streamed from a pinned HostTable lineitem equals its
+    resident run on the card bit for bit (the kernels run: 1000-tuple
+    chunks, float32), with the double-buffered and the synchronous
+    schedule, and launches each kernel as often as the resident run."""
+    from repro_torch.db import tpch
+    from repro_torch.db.table import HostTable
+    db = tpch.generate(n_orders=2000, seed=0, device="cuda")
+    host = tpch.TPCH(**dict(db.tables(),
+                            lineitem=HostTable.from_table(db.lineitem)),
+                     scale=db.scale)
+    resident = _streamed_queries(db, None)
+    for name, fn in _streamed_queries(host, STREAM_OPTS).items():
+        ops.reset_launches()
+        ref = resident[name]()
+        want = ops.launches()
+        ops.reset_launches()
+        _assert_same_bits(ref, fn())
+        assert ops.launches() == want, name
+    sync = _streamed_queries(host, dict(STREAM_OPTS,
+                                        stream_double_buffer=False))
+    _assert_same_bits(resident["q1"](), sync["q1"]())
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_rerun_after_empty_cache(cuda_device):
+    """The side-stream slab copies leave no tensor in use past its event:
+    with the caching allocator emptied between runs (so every block is
+    allocated anew), a rerun is bit-equal."""
+    from repro_torch.db import tpch
+    from repro_torch.db.plans import compile_plan
+    from repro_torch.db.table import HostTable
+    db = tpch.generate(n_orders=2000, seed=0, device="cuda")
+    host = dict(db.tables(), lineitem=HostTable.from_table(db.lineitem))
+    fn = compile_plan(tpch.q1_plan(), device_row_budget=2500,
+                      stream_wave_chunks=1)
+    first = fn(host)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _assert_same_bits(first, fn(host))
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_q6_exact_launches(cuda_device):
+    """Streamed Q6 exact launches logcf once per canonical chunk, as often
+    as the resident run (8), and agrees with it bit for bit."""
+    from repro_torch.db import tpch
+    from repro_torch.db.table import HostTable
+    db = tpch.generate(n_orders=2000, seed=0, device="cuda")
+    host = tpch.TPCH(**dict(db.tables(),
+                            lineitem=HostTable.from_table(db.lineitem)),
+                     scale=db.scale)
+    pb_cf.logcf.launches = 0
+    ref = tpch.q6(db, "aggregate", num_freq=4096)
+    resident = pb_cf.logcf.launches
+    pb_cf.logcf.launches = 0
+    got = tpch.q6(host, "aggregate", num_freq=4096, plan_opts=STREAM_OPTS)
+    assert pb_cf.logcf.launches == resident == 8
+    _assert_same_bits(ref, got)
