@@ -4,7 +4,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Seven phases, each of which raises on a failed check (exit code != 0):
+Eight phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -55,11 +55,33 @@ Seven phases, each of which raises on a failed check (exit code != 0):
    tail and bit-equal-rerun checks.
 6. Small size (n_orders=2000): both paths on the CPU's plain versions
    against the card's kernels.
-7. Streamed at SF10 cardinalities (60,000,000 lineitem rows on the
+7. Streamed at SF5 cardinalities (30,000,000 lineitem rows on the
    host, 32 canonical chunks, 16 waves of 2): Q1 aggregate and Q6 exact
    double-buffered and synchronous, the host->device copy rate beside a
    plain pinned ``copy_`` of one slab, the peak device memory against the
    resident run of the same query, bit-equal to it.
+8. Mesh at SF1 (``compile_plan(root, mesh)``): (a) a one-rank NCCL group
+   in this process; (b) three gloo ranks sharing the card (8 canonical
+   chunks over 3 ranks: the ragged split), which open the SF1 tables this
+   process saved and materialise them on the card; (c) four gloo ranks as
+   a (2, 2) data x model mesh (Q6 exact and Q18 exact: Q6's N/2 + 1
+   unique logcf columns and Q18's frequency slabs split over the model
+   axis).  (a) and (b) run the SF1 aggregate queries, both exact
+   variants, Q3 with the co-partitioned pipeline forced and Q20 with
+   ShuffleJoin; every rank's result must be bit-equal to phase 3's (a
+   digest of every leaf's bits) and the launches per query, summed over
+   ranks, equal to phase 3's times the model ranks (each runs its data
+   block's chunks) and, for the forced co-partitioned Q3 (a
+   hash-partitioned pass runs every chunk on every owner), times the data
+   ranks.  (b) also checks zero exchange
+   overflow, a stale-stats ``run_plan`` (orders x customer on a
+   ShuffleJoin, stats from a half-size snapshot) that converges through
+   the exchange escalation bit-equal to a first run at its
+   ``final_params``,
+   an exchange fault that propagates from every rank, and Q1 / Q6 exact
+   streamed bit-equal to phase 3.  Each rank's wall ms per query, the
+   collective counts and each rank's peak device memory are printed.
+   Ranks that share one card say nothing about scaling.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -69,7 +91,9 @@ JSON.  Details (all numbers, the ptxas report of the build) go to
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -107,21 +131,21 @@ SF1_WAVES = 4
 #: the kernels the streamed path runs (polymul is the value layer's).
 STREAM_KERNELS = ("logcf", "group_logcf", "cumulant_sums",
                   "group_cumulant_sums")
-#: The larger scale: TPC-H SF10's orders and lineitem (15,000,000 orders,
-#: 60,000,000 lineitem rows) as host tables, on a grid of 32 canonical
-#: chunks (1,875,000 rows each); n_parts stays at SF1's 200,000 and
+#: The larger scale: TPC-H SF5's orders and lineitem (7,500,000 orders,
+#: 30,000,000 lineitem rows) as host tables, on a grid of 32 canonical
+#: chunks (937,500 rows each); n_parts stays at SF1's 200,000 and
 #: n_suppliers at 1,000 (PERF.md §4).
-SF10 = dict(n_orders=15_000_000, lines_per_order=4, n_parts=200_000,
-            n_suppliers=1_000, n_customers=1_500_000, n_nations=25, seed=0)
-SF10_CHUNKS = 32
-#: device_row_budget of each SF10 query, in canonical chunks' rows, for
+SF5 = dict(n_orders=7_500_000, lines_per_order=4, n_parts=200_000,
+           n_suppliers=1_000, n_customers=750_000, n_nations=25, seed=0)
+SF5_CHUNKS = 32
+#: device_row_budget of each SF5 query, in canonical chunks' rows, for
 #: waves of 2 chunks (16 waves): a pruned slab of c of lineitem's 10
 #: columns (+ p, valid) is (c + 2) / 12 of a full row, and a wave takes
 #: (budget / width) // (2 chunks) chunks (db/cost.py wave_schedule).  Q1
 #: reads 5 columns (2.8 * 12 / 7 = 4.8 chunks), Q6 exact 3 (2.0 * 12 / 5):
-#: 5,250,000 and 3,750,000 rows.
-SF10_BUDGET_CHUNKS = {"q1/aggregate": 2.8, "q6/aggregate_exact": 2.0}
-SF10_WAVES = 16
+#: 2,625,000 and 1,875,000 rows.
+SF5_BUDGET_CHUNKS = {"q1/aggregate": 2.8, "q6/aggregate_exact": 2.0}
+SF5_WAVES = 16
 #: what each kernel replaces on the TPU.
 REPLACES = {
     "logcf": "src/repro/kernels/pb_cf.py:41",
@@ -672,6 +696,18 @@ def kernel_phase(dev, rng) -> dict:
     print(f"logcf phase exactness: n={n2} N=2^20 max err {e2:.3e} "
           "(tolerance 2e-3)")
     check(e2 <= 2e-3, f"logcf phase at N=2^20: {e2}")
+    # Phase 8 (c)'s model split: two windows of the k <= N/2 columns at
+    # Q6's shape, each bit-equal to those columns of the whole launch,
+    # mirrored back to the whole launch's bits.
+    f_loc = -(-half // 2)
+    parts = [pb_cf.logcf(p, v, num_freq=nf, freq_lo=lo_, freq_cnt=cnt_)
+             for lo_, cnt_ in ((0, f_loc), (f_loc, half - f_loc))]
+    whole = pb_cf.mirror(torch.cat([x[0] for x in parts]),
+                         torch.cat([x[1] for x in parts]), nf)
+    check(bit_equal(whole, (la, an)), "logcf windows: not the whole "
+          "launch's bits")
+    print(f"logcf windows [0, {f_loc}) and [{f_loc}, {half}) of n={n} "
+          f"N={nf}, mirrored: bit-equal to the whole launch")
     print(against_earlier("logcf", t))
     rows["logcf"] = dict(
         max_abs_err=max(err_la, err_an, e2), **t, plain_ms=plain_ms,
@@ -682,7 +718,7 @@ def kernel_phase(dev, rng) -> dict:
         plain_shape=f"n={prefix} N={nf}", prefix_ms=ms_prefix,
         max_err_over_sum_abs=rel, variants=variants, value_layer=small,
         twiddle_table=ab)
-    del p, v, la, an
+    del p, v, la, an, parts, whole
 
     # 2. group_logcf at Q18's shape: 187,500 orders x 4 rows per chunk,
     # G = 1.5M, N = 256, the middle frequency slab [89, 178).
@@ -1593,22 +1629,22 @@ def pinned_copy_gbs(nbytes: int, reps: int = 16) -> float:
     return nbytes * reps / (start.elapsed_time(stop) / 1e3) / 1e9
 
 
-def sf10_phase() -> dict:
+def sf5_phase() -> dict:
     """Phase 7 (module docstring): Q1 aggregate and Q6 exact streamed
-    from SF10 host tables, double-buffered and synchronous, against the
+    from SF5 host tables, double-buffered and synchronous, against the
     resident runs of the same queries on the same grid."""
     import numpy as np
     import torch
     from repro_torch.db import tpch
     from repro_torch.db.table import HostTable
     t0 = time.perf_counter()
-    arrays, scale = tpch.generate_numpy(**SF10)
+    arrays, scale = tpch.generate_numpy(**SF5)
     hosts = {name: HostTable(a["columns"], a["prob"].astype(np.float32))
              for name, a in arrays.items()}
     del arrays
     gen_s = time.perf_counter() - t0
     li = hosts["lineitem"]
-    print(f"SF10 host tables: lineitem {li.capacity} rows, orders "
+    print(f"SF5 host tables: lineitem {li.capacity} rows, orders "
           f"{hosts['orders'].capacity} rows, {gen_s:.1f} s")
     db = tpch.TPCH(**hosts, scale=scale)
     queries = {
@@ -1617,25 +1653,25 @@ def sf10_phase() -> dict:
             d, "aggregate", num_freq=4096, plan_opts=o)}
     report = dict(generate_s=gen_s, queries={})
     got = {}
-    chunk_rows = -(-li.capacity // SF10_CHUNKS)
+    chunk_rows = -(-li.capacity // SF5_CHUNKS)
     for name, q in queries.items():
-        opts = dict(canonical_chunks=SF10_CHUNKS, device_row_budget=int(
-            SF10_BUDGET_CHUNKS[name] * chunk_rows))
+        opts = dict(canonical_chunks=SF5_CHUNKS, device_row_budget=int(
+            SF5_BUDGET_CHUNKS[name] * chunk_rows))
         row = {}
         for label, o in (("double-buffered", opts),
                          ("synchronous", dict(opts,
                                               stream_double_buffer=False))):
             got[name, label], ms, st, peak = run_streamed(
                 lambda q=q, o=o: q(db, o))
-            check(st["waves"] == 2 * SF10_WAVES, f"SF10 {name}: {st}")
-            row[label] = stream_line(f"SF10 streamed {name} {label}", ms,
+            check(st["waves"] == 2 * SF5_WAVES, f"SF5 {name}: {st}")
+            row[label] = stream_line(f"SF5 streamed {name} {label}", ms,
                                      st, peak)
         check(bit_equal(got[name, "double-buffered"],
                         got[name, "synchronous"]),
-              f"SF10 {name}: synchronous run differs")
-        wave = row["double-buffered"]["slab_bytes"] // (2 * SF10_WAVES)
+              f"SF5 {name}: synchronous run differs")
+        wave = row["double-buffered"]["slab_bytes"] // (2 * SF5_WAVES)
         row["pinned_copy_gb_s"] = pinned_copy_gbs(wave)
-        print(f"SF10 {name}: plain pinned copy_ of one slab ({wave} bytes) "
+        print(f"SF5 {name}: plain pinned copy_ of one slab ({wave} bytes) "
               f"{row['pinned_copy_gb_s']:.2f} GB/s; streamed copies "
               f"{row['double-buffered']['h2d_gb_s']:.2f} GB/s; "
               f"double-buffered {row['double-buffered']['wall_ms']:.1f} ms "
@@ -1648,17 +1684,366 @@ def sf10_phase() -> dict:
                          scale=scale)
     for name, q in queries.items():
         ref, ms = timed(lambda q=q: q(resident, dict(
-            canonical_chunks=SF10_CHUNKS)))
+            canonical_chunks=SF5_CHUNKS)))
         peak = torch.cuda.max_memory_allocated() - base
-        check_finite(f"SF10 resident {name}", ref)
+        check_finite(f"SF5 resident {name}", ref)
         check(bit_equal(ref, got[name, "double-buffered"]),
-              f"SF10 streamed {name} is not bit-equal to resident")
-        print(f"SF10 resident {name}: {ms:.1f} ms, peak device memory "
+              f"SF5 streamed {name} is not bit-equal to resident")
+        print(f"SF5 resident {name}: {ms:.1f} ms, peak device memory "
               f"{peak / 1e9:.3f} GB (lineitem on the card included); "
               "streamed == resident bit for bit")
         report["queries"][name]["resident"] = dict(wall_ms=ms,
                                                    peak_bytes=peak)
         torch.cuda.reset_peak_memory_stats()
+    return report
+
+
+# ----------------------------------------------------------------- mesh
+def digest(result) -> dict:
+    """{leaf path: [shape, dtype, h1, h2]}: two 64-bit polynomial hashes of
+    each leaf's bytes, computed on its device (integer arithmetic, so the
+    same bits always give the same digest; a changed bit changes both
+    hashes with overwhelming likelihood).  Ranks in other processes hold
+    their results to phase 3's through these, without moving them."""
+    import torch
+    out = {}
+    for path, t in leaves(result):
+        b = t.contiguous().reshape(-1)
+        if b.dtype == torch.bool:
+            b = b.to(torch.uint8)
+        b = b.view(torch.uint8)
+        pad = (-b.numel()) % 8
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        w = b.view(torch.int64)
+        h1 = h2 = 0
+        for lo in range(0, w.numel(), 1 << 26):     # bounded temporaries
+            x = w[lo:lo + (1 << 26)]
+            i = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                             device=w.device)
+            h1 += int(torch.sum(x * (2 * i + 1)))
+            h2 += int(torch.sum((x ^ (i * 0x9E3779B97F4A7C1)) * (i * 6 + 5)))
+        out[path] = [list(t.shape), str(t.dtype), h1 % (1 << 64),
+                     h2 % (1 << 64)]
+    return out
+
+
+def mesh_queries(db, mesh) -> dict:
+    """Phase 8's queries on ``mesh``: the SF1 phase's aggregate queries and
+    exact variants, Q3 with its orders join over the gather budget (the
+    co-partitioned pipeline) and Q20 with every join over it
+    (ShuffleJoin); each must equal its :data:`MESH_PHASE3` query.  The two
+    exchange plans run with a report (the query functions' own
+    post-processing, inline) and return it too."""
+    from repro_torch.db import plans, tpch
+
+    def q3_copartitioned():
+        out, rep = plans.compile_plan(
+            tpch.q3_plan(max_groups=Q3_GROUPS, order_join_budget=4), mesh,
+            with_report=True, copartition=True)(db.tables())
+        return dict(valid=out["valid"], revenue=out["sum"],
+                    cumulants=out["cumulants"]), rep
+
+    def q20_shuffle_join():
+        out, rep = plans.compile_plan(
+            tpch.q20_plan(max_groups=Q20_GROUPS), mesh, with_report=True,
+            join_gather_budget=4)(db.tables())
+        return dict(valid=out.valid, s_name=out["s_name"],
+                    prob=out.prob), rep
+    return {
+        "q1/aggregate": lambda: tpch.q1(db, "aggregate", mesh=mesh),
+        "q3/aggregate": lambda: tpch.q3(db, "aggregate",
+                                        max_groups=Q3_GROUPS, mesh=mesh),
+        "q6/aggregate": lambda: tpch.q6(db, "aggregate", mesh=mesh),
+        "q18/aggregate": lambda: tpch.q18(
+            db, "aggregate", max_groups=Q18_NORMAL_GROUPS, mesh=mesh),
+        "q20/aggregate": lambda: tpch.q20(db, "aggregate",
+                                          max_groups=Q20_GROUPS, mesh=mesh),
+        "q6/aggregate_exact": lambda: tpch.q6(db, "aggregate",
+                                              num_freq=4096, mesh=mesh),
+        "q18/aggregate_exact": lambda: tpch.q18(
+            db, "aggregate", method="exact", max_groups=Q18_GROUPS,
+            num_freq=256, mesh=mesh, plan_opts=Q18_EXACT_OPTS),
+        "q3/copartitioned": q3_copartitioned,
+        "q20/shuffle_join": q20_shuffle_join,
+    }
+
+
+#: the phase-3 query a phase-8 query must equal, where the names differ
+MESH_PHASE3 = {"q3/copartitioned": "q3/aggregate",
+               "q20/shuffle_join": "q20/aggregate"}
+#: the queries each part of phase 8 runs (mesh_queries names)
+MESH_ALL = ("q1/aggregate", "q3/aggregate", "q6/aggregate", "q18/aggregate",
+            "q20/aggregate", "q6/aggregate_exact", "q18/aggregate_exact",
+            "q3/copartitioned", "q20/shuffle_join")
+MESH_MODEL = ("q6/aggregate_exact", "q18/aggregate_exact")
+#: the kernels the mesh path runs
+MESH_KERNELS = ("logcf", "group_logcf", "cumulant_sums",
+                "group_cumulant_sums")
+
+
+def run_mesh_queries(db, mesh, names) -> dict:
+    """Each query once: its digest, wall ms, kernel launches, collective
+    counts and (the exchange plans) exchange overflow per leg."""
+    import torch
+    from repro_torch.db import distributed as dist
+    from repro_torch.kernels import ops
+    out = {}
+    for name in names:
+        fn = mesh_queries(db, mesh)[name]
+        before = ops.launches()
+        counts = dict(dist.COLLECTIVE_COUNTS)
+        res, ms = timed(fn)
+        rep = None
+        if isinstance(res, tuple):
+            res, rep = res
+        out[name] = dict(digest=digest(res), ms=ms, launches={
+            k: v - before[k] for k, v in ops.launches().items()},
+            collectives={k: v - counts.get(k, 0)
+                         for k, v in dist.COLLECTIVE_COUNTS.items()
+                         if v > counts.get(k, 0)},
+            overflow=None if rep is None
+            else rep.host_values()["exchange_overflow"])
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def per_owner(r: dict) -> bool:
+    """Did the query run a hash-partitioned pass (partitioned_merge)?
+    Its accumulate runs every canonical chunk on every owner, over the
+    owner's groups: launches = data ranks x phase 3's (the forced
+    co-partitioned Q3; ``compile_plan`` does not choose it by default)."""
+    return any(k in r["collectives"] for k in ("merge_psum", "merge_gather"))
+
+
+def mesh_rank(shape, names, device, table_dir, stale_dir, scale, queries,
+              extras) -> dict:
+    """One gloo rank of phase 8 (b) or (c), sharing cuda:0: open the SF1
+    tables the parent saved, materialise them on the card, run
+    ``queries``; with ``extras`` also the exchange reports, the stale-stats
+    retry, an exchange fault and the streamed runs."""
+    import torch
+    from repro_torch.db import distributed as dist
+    from repro_torch.db import plans, tpch
+    from repro_torch.db.table import HostTable
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing import faults
+    build.library()                     # built by the parent
+    mesh = make_mesh(shape, names, backend="gloo", device=device)
+    opened = {t: HostTable.open(str(pathlib.Path(table_dir) / t))
+              for t in tpch.TABLES}
+    db = tpch.TPCH(**{k: v.to_table(mesh.device) for k, v in opened.items()},
+                   scale=scale)
+    dist.reset_collective_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(rank=mesh.rank, coords=mesh.coords,
+               queries=run_mesh_queries(db, mesh, queries))
+    if extras:
+        # stale stats (a half-size snapshot) undersize the buckets of a
+        # ShuffleJoin (orders x customer, COUNT per market segment): the
+        # retry escalates the floor and converges
+        stale = {t: HostTable.open(str(pathlib.Path(stale_dir) / t))
+                 for t in ("orders", "customer")}
+        root = plans.GroupAgg(
+            plans.FKJoin(plans.Scan("orders"), plans.Scan("customer"),
+                         "o_custkey", "c_custkey", ("c_mktsegment",)),
+            ("c_mktsegment",), "", "COUNT", 8)
+        opts = dict(join_gather_budget=4, stats_tables=stale)
+        got, rep = plans.run_plan(root, db.tables(), mesh, **opts)
+        fin = rep.final_params
+        first = plans.compile_plan(
+            root, mesh, shuffle_slack=fin["shuffle_slack"],
+            shuffle_bucket_floor=fin["shuffle_bucket_floor"],
+            **opts)(db.tables())
+        out["stale_retry"] = dict(
+            attempts=rep.waves["attempts"], issues=rep.issues(),
+            final_params=fin, bit_equal_first=bit_equal(first, got))
+        del got, first
+        # one exchange fault, injected on every rank, propagates
+        try:
+            with faults.inject(faults.FaultPlan(exchange_calls={0})):
+                mesh_queries(db, mesh)["q20/shuffle_join"]()
+            out["exchange_fault"] = "not raised"
+        except faults.TransferFault as e:
+            out["exchange_fault"] = f"raised: {e}"
+        # streamed from the memory-mapped lineitem
+        host = tpch.TPCH(**dict(db.tables(), lineitem=opened["lineitem"]),
+                         scale=scale)
+        from repro_torch.kernels import ops
+        out["streamed"] = {}
+        for name, fn in (
+                ("q1/aggregate", lambda: tpch.q1(host, "aggregate", mesh=mesh,
+                                                 plan_opts=STREAM_OPTS)),
+                ("q6/aggregate_exact", lambda: tpch.q6(
+                    host, "aggregate", num_freq=4096, mesh=mesh,
+                    plan_opts=STREAM_OPTS))):
+            before = ops.launches()
+            plans.reset_stream_stats()
+            res, ms = timed(fn)
+            out["streamed"][name] = dict(
+                digest=digest(res), ms=ms, waves=plans.stream_stats()["waves"],
+                launches={k: v - before[k] for k, v in ops.launches().items()})
+            del res
+    out["collectives"] = dict(dist.COLLECTIVE_COUNTS)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_phase(out_dir, ref, ref_launches) -> dict:
+    """Phase 8 (module docstring): the mesh path on the card, (a) one-rank
+    NCCL in this process, (b) three gloo ranks and (c) a (2, 2) gloo mesh
+    sharing it; every result's digest equal to phase 3's."""
+    import shutil
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.db import distributed as dist
+    from repro_torch.db import tpch
+    from repro_torch.db.table import HostTable
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing.ranks import run_ranks
+    card = card_line()
+    report = dict(card=card)
+    total = {k: 0 for k in ops.launches()}
+
+    def compare(label, name, digests, launches, scale=1):
+        phase3 = MESH_PHASE3.get(name, name)
+        for d in digests:
+            check(d == ref[phase3], f"mesh {label} {name}: not bit-equal "
+                  f"to phase 3's {phase3}")
+        if launches is not None:
+            want = {k: v * scale for k, v in ref_launches[phase3].items()}
+            check(launches == want, f"mesh {label} {name}: launches "
+                  f"{launches}, phase 3 {ref_launches[phase3]} x {scale}")
+
+    # (a) one rank on an NCCL group, in this process
+    db = tpch.generate(**SF1, device="cuda")
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(out_dir / "nccl_store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1,), ("data",), backend="nccl", device="cuda:0")
+        dist.reset_collective_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        a = run_mesh_queries(db, mesh, MESH_ALL)
+        for k, v in ops.launches().items():
+            total[k] += v
+        report["nccl_1"] = dict(queries=a,
+                                collectives=dict(dist.COLLECTIVE_COUNTS),
+                                peak_bytes=torch.cuda.max_memory_allocated())
+    finally:
+        tdist.destroy_process_group()
+    for name, r in a.items():
+        compare("(a) nccl x1", name, [r["digest"]], r["launches"])
+        check(r["overflow"] is None or (r["overflow"] and not any(
+            r["overflow"].values())), f"mesh (a) {name}: {r['overflow']}")
+        print(f"mesh (a) NCCL 1 rank {name}: {r['ms']:.1f} ms, bit-equal to "
+              f"phase 3, launches equal [{card}]")
+    print(f"mesh (a) collectives {report['nccl_1']['collectives']}, peak "
+          f"device memory {report['nccl_1']['peak_bytes'] / 1e9:.3f} GB")
+
+    # the SF1 tables for the gloo ranks, and a half-size stale snapshot
+    tdir, sdir = out_dir / "mesh_sf1", out_dir / "mesh_sf1_stale"
+    for t in tpch.TABLES:
+        HostTable.from_table(getattr(db, t)).save(str(tdir / t))
+    scale = dict(db.scale)
+    del db
+    torch.cuda.empty_cache()
+    stale_arrays, _ = tpch.generate_numpy(**dict(
+        SF1, n_orders=SF1["n_orders"] // 2))
+    for t in ("orders", "customer"):
+        arr = stale_arrays[t]
+        HostTable(arr["columns"], arr["prob"].astype("float32")).save(
+            str(sdir / t))
+    del stale_arrays
+    # Three or four ranks share the card's 80 GB (Q18 exact peaks at
+    # ~16 GB a rank): this process gives back what it cached, and the
+    # ranks' allocators (the setting is inherited) strand little.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh: this process holds {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB of device memory ({torch.cuda.memory_reserved() / 1e9:.3f} "
+          "GB reserved) before the gloo ranks start")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for label, shape, names, queries, extras in (
+                ("(b) gloo x3", (3,), ("data",), MESH_ALL, True),
+                ("(c) gloo 2x2", (2, 2), ("data", "model"), MESH_MODEL,
+                 False)):
+            world = int(shape[0] * (shape[1] if len(shape) > 1 else 1))
+            store = out_dir / f"mesh_ranks_{world}_{len(shape)}"
+            shutil.rmtree(store, ignore_errors=True)
+            t0 = time.perf_counter()
+            ranks = run_ranks(mesh_rank, world, backend="gloo",
+                              device="cuda:0", store_dir=store,
+                              args=(shape, names, "cuda:0", str(tdir),
+                                    str(sdir), scale, queries, extras),
+                              timeout=900)
+            wall = time.perf_counter() - t0
+            for name in queries:
+                summed = {k: sum(r["queries"][name]["launches"][k]
+                                 for r in ranks) for k in total}
+                # every model rank runs its data block's chunks (its
+                # frequency window of each exact-CF slab)
+                model = shape[1] if len(shape) > 1 else 1
+                compare(label, name,
+                        [r["queries"][name]["digest"] for r in ranks],
+                        summed, model * (shape[0] if per_owner(
+                            ranks[0]["queries"][name]) else 1))
+                for r in ranks:
+                    over = r["queries"][name]["overflow"]
+                    check(over is None or (over and not any(over.values())),
+                          f"mesh {label} {name}: exchange overflow {over}")
+                for k in total:
+                    total[k] += summed[k]
+                print(f"mesh {label} {name}: rank ms "
+                      + ", ".join(f"{r['queries'][name]['ms']:.1f}"
+                                  for r in ranks)
+                      + f"; bit-equal to phase 3 on every rank [{card}]")
+            for r in ranks:
+                print(f"mesh {label} rank {r['rank']} {r['coords']}: "
+                      f"collectives {r['collectives']}, peak device memory "
+                      f"{r['peak_bytes'] / 1e9:.3f} GB")
+            if extras:
+                for r in ranks:
+                    st = r["stale_retry"]
+                    check(st["attempts"] == 2 and st["issues"] == {}
+                          and st["bit_equal_first"],
+                          f"mesh {label} stale-stats retry: {st}")
+                    check(r["exchange_fault"].startswith(
+                        "raised: injected exchange fault"),
+                        f"mesh {label} exchange fault: {r['exchange_fault']}")
+                    for name, s in r["streamed"].items():
+                        compare(f"{label} streamed", name, [s["digest"]], None)
+                for name in ranks[0]["streamed"]:
+                    summed = {k: sum(r["streamed"][name]["launches"][k]
+                                     for r in ranks) for k in total}
+                    compare(f"{label} streamed", name, [], summed)
+                    for k in total:
+                        total[k] += summed[k]
+                st = ranks[0]["stale_retry"]
+                print(f"mesh {label}: exchange overflow 0 on every leg; "
+                      f"stale stats retry {st['attempts']} attempts, "
+                      f"final_params {st['final_params']}, bit-equal to a "
+                      "first run at final_params; an exchange fault "
+                      "propagated from every rank; streamed Q1 / Q6 exact "
+                      "bit-equal to phase 3, launches equal")
+            print(f"mesh {label}: {world} ranks, {wall:.1f} s with the "
+                  "spawn, imports and table loads")
+            report[label] = dict(ranks=ranks, wall_s=wall)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+        shutil.rmtree(sdir, ignore_errors=True)
+    for k in MESH_KERNELS:
+        check(total[k] > 0, f"{k} not launched on the mesh path")
+    report["launches"] = total
+    print(f"mesh-path launches (all ranks): {total}; ranks that share one "
+          "card say nothing about scaling")
     return report
 
 
@@ -1748,8 +2133,12 @@ def main() -> int:
     # The main path: counters at 0, every query once, counters read.
     ops.reset_launches()
     res = {}
+    query_launches = {}
     for name, fn in queries.items():
+        before = ops.launches()
         res[name] = fn()
+        query_launches[name] = {k: v - before[k]
+                                for k, v in ops.launches().items()}
         check_finite(name, res[name])
     torch.cuda.synchronize()
     launches = ops.launches()
@@ -1779,7 +2168,10 @@ def main() -> int:
                           for name in ("q1/aggregate", "q3/aggregate",
                                        "q6/aggregate_exact",
                                        "q18/aggregate_exact")}
-    del res
+    # what phase 8's mesh runs must equal
+    mesh_ref = {name: digest(res[name]) for name in MESH_ALL
+                if name not in MESH_PHASE3}
+    del res, queries
     torch.cuda.empty_cache()
 
     report["streamed_sf1"] = streamed_phase(db, out_dir)
@@ -1808,13 +2200,17 @@ def main() -> int:
           f"kernels: max err / scale {small_values['max_rel']:.3e} "
           "(tolerance 2e-4; values, validity and group ids equal)")
 
-    report["sf10"] = sf10_phase()
+    report["sf5"] = sf5_phase()
     torch.cuda.empty_cache()
 
-    # launches: the runs of the TPC-H path, the value-layer path and the
-    # streamed path.
+    report["mesh"] = mesh_phase(out_dir, mesh_ref, query_launches)
+    torch.cuda.empty_cache()
+
+    # launches: the runs of the TPC-H path, the value-layer path, the
+    # streamed path and the mesh path (every rank).
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
+    mesh_launches = report["mesh"]["launches"]
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
                  "group_cumulant_sums", "polymul"):
@@ -1822,7 +2218,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name],
                             launches=launches[name] + value_launches[name]
-                            + stream_launches[name],
+                            + stream_launches[name] + mesh_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

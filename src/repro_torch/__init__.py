@@ -9,3 +9,7 @@ Entry points take ``device=`` and default to ``"cuda"``; they raise when no
 card is present.  The CPU runs only when the caller asks for it, and there
 every kernel wrapper computes its plain PyTorch version instead.
 """
+
+from .core.config import settle_cpu_math as _settle_cpu_math
+
+_settle_cpu_math()

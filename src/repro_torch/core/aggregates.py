@@ -95,6 +95,12 @@ class SumCF:
     def merge(a: CFState, b: CFState) -> CFState:
         return CFState(a.log_abs + b.log_abs, a.angle + b.angle)
 
+    @staticmethod
+    def psum_merge(state: CFState, ax) -> CFState:
+        """Merge the ranks of ``ax`` (a MeshAxis): one psum per field."""
+        from ..db.distributed import psum
+        return CFState(psum(state.log_abs, ax), psum(state.angle, ax))
+
     def finalize(self, state: CFState) -> PGF:
         coeffs = self._u.finalize(uda.CFState(state.log_abs[None],
                                               state.angle[None]))
@@ -130,6 +136,11 @@ class SumCumulants:
     def merge(a, b) -> CumulantState:
         return CumulantState(a.terms + b.terms)
 
+    @staticmethod
+    def psum_merge(state, ax) -> CumulantState:
+        from ..db.distributed import psum
+        return CumulantState(psum(state.terms, ax))
+
     def finalize(self, state) -> approx.GammaMixture:
         return approx.fit_gamma_mixture(approx._host(state.terms), p=self.p)
 
@@ -154,6 +165,11 @@ class SumNormal:
     @staticmethod
     def merge(a, b) -> NormalState:
         return NormalState(a.terms + b.terms)
+
+    @staticmethod
+    def psum_merge(state, ax) -> NormalState:
+        from ..db.distributed import psum
+        return NormalState(psum(state.terms, ax))
 
     @staticmethod
     def finalize(state) -> approx.NormalApprox:

@@ -5,6 +5,7 @@ JAX package with x64 off; float32 is also the only dtype the CUDA kernels
 take.  ``resolve_device`` turns an entry point's ``device=`` into a
 ``torch.device``: the card is the default, and asking for it on a host
 without one raises instead of falling back to the CPU.
+:func:`settle_cpu_math` runs once when the package is imported.
 """
 from __future__ import annotations
 
@@ -35,3 +36,18 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but no CUDA card is available; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def settle_cpu_math() -> None:
+    """Call each vectorised CPU math function the plain versions use once,
+    on this thread alone (8 elements stay below the intra-op grain).  The
+    first such call of a process initialises the vector math library;
+    when that first call was split over the intra-op threads, one thread's
+    share of a ``torch.cos`` came back with relative errors up to 1.5e-4
+    (PyTorch 2.13 on the CPU, after other tests had started the thread
+    pool): the plain logcf's intermittent test failure."""
+    x = torch.full((8,), 0.5)
+    for fn in (torch.cos, torch.sin, torch.log, torch.log1p, torch.exp,
+               torch.expm1):
+        fn(x)
+    torch.atan2(x, x)

@@ -33,6 +33,16 @@ def logcf_terms(probs, values, num_freq: int, block: int = 4096):
     return st.log_abs[0], st.angle[0]
 
 
+def sharded_logcf(probs, values, num_freq: int, ax):
+    """This rank's tuples accumulated, then one psum per output over the
+    ranks of ``ax`` (a :class:`~repro_torch.launch.mesh.MeshAxis`): the
+    summed log CF of the union.  A float psum adds in the backend's
+    order, so it agrees with the one-device sum to rounding."""
+    from ..db.distributed import psum
+    la, an = logcf_terms(probs, values, num_freq)
+    return psum(la, ax), psum(an, ax)
+
+
 def logcf_finalize(log_abs, angle):
     """exp + FFT: recover the coefficient vector from summed log CF."""
     return uda.SumCF(log_abs.shape[-1]).finalize(

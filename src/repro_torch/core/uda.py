@@ -97,6 +97,12 @@ class UDA:
     #: streaming UDAs accumulate block by block in the canonical loop;
     #: non-streaming ones (MinMax) consume the full column at once.
     streaming: bool = True
+    #: additive states merge by elementwise addition (a psum across
+    #: ranks); MinMax is not additive and gather-folds instead.
+    additive: bool = True
+    #: a scalar UDA ignores group ids and keeps one global group (the
+    #: exact global CF of ``db.distributed.make_query_step``).
+    scalar: bool = False
 
     def init(self, max_groups: int, dtype=None, device="cuda"):
         raise NotImplementedError
@@ -107,6 +113,23 @@ class UDA:
 
     def merge(self, a, b):
         return _merge_fields(a, b)
+
+    def reduce_data(self, state, ax):
+        """Merge across the tuple-sharding ranks ``ax`` (a
+        :class:`~repro_torch.launch.mesh.MeshAxis`, None for none): one
+        psum per field.  A float all_reduce adds in the backend's order,
+        so this is held to tolerance; the plan executor's bit-equal merges
+        are in :mod:`repro_torch.db.distributed`."""
+        if ax is None:
+            return state
+        from ..db import distributed as dist
+        return dist.map_state(lambda x: dist.psum(x, ax), state)
+
+    def reduce_model(self, state, ax):
+        """Reconcile model-axis replicas (tuples are replicated there):
+        their mean."""
+        from ..db import distributed as dist
+        return dist.map_state(lambda x: dist.psum(x, ax) / ax.size, state)
 
     def finalize(self, state):
         raise NotImplementedError
@@ -231,14 +254,18 @@ class SumCF(UDA):
 
     ``num_freq`` (= max_sum + 1) is the static distribution capacity;
     ``freq_cnt`` frequencies starting at ``freq_lo`` are accumulated (the
-    planner's frequency slabs)."""
+    planner's frequency slabs).  ``half``: the window lies in the k <= N/2
+    columns that the scalar logcf kernel computes before it mirrors (a
+    model rank's share of a one-group pass; the planner gathers the half
+    and mirrors it)."""
 
     def __init__(self, num_freq: int, freq_lo: int = 0,
-                 freq_cnt: int | None = None):
+                 freq_cnt: int | None = None, half: bool = False):
         self.num_freq = int(num_freq)
         self.freq_lo = int(freq_lo)
         self.freq_cnt = (int(freq_cnt) if freq_cnt is not None
                          else self.num_freq)
+        self.half = bool(half)
 
     def init(self, max_groups, dtype=None, device="cuda"):
         shape = (max_groups, self.freq_cnt)
@@ -252,6 +279,11 @@ class SumCF(UDA):
         """Whole-column accumulate through the scalar or grouped CF kernel;
         requires integer-valued ``values``."""
         from ..kernels import group_cf, pb_cf
+        if max_groups == 1 and self.half:
+            la, an = pb_cf.logcf(probs, values, num_freq=self.num_freq,
+                                 freq_lo=self.freq_lo,
+                                 freq_cnt=self.freq_cnt)
+            return CFState(state.log_abs + la[None], state.angle + an[None])
         if max_groups == 1 and self.freq_lo == 0 \
                 and self.freq_cnt == self.num_freq:
             la, an = pb_cf.logcf(probs, values, num_freq=self.num_freq)
@@ -281,6 +313,14 @@ class SumCF(UDA):
         an = torch.atan2(im, re)
         return CFState(_scatter_add(state.log_abs, gids, la),
                        _scatter_add(state.angle, gids, an))
+
+    def reduce_model(self, state, ax):
+        """The model ranks' frequency windows, gathered along the last
+        axis in rank order (each column is computed on its own, so the
+        full-width state is the unsplit one bit for bit)."""
+        from ..db import distributed as dist
+        return CFState(dist.all_gather_last(state.log_abs, ax),
+                       dist.all_gather_last(state.angle, ax))
 
     def finalize(self, state):
         """(G, F) summed log CF -> (G, F) coefficient rows, one batched FFT."""
@@ -322,6 +362,7 @@ class MinMax(UDA):
     is shared).  Not additive: partial states fold with :meth:`merge`."""
 
     streaming = False
+    additive = False
 
     def __init__(self, kappa: int = 64, sign: float = 1.0):
         self.kappa = int(kappa)
@@ -460,6 +501,22 @@ class MinMax(UDA):
                            a.tail_log_none + b.tail_log_none + evicted.sum(1),
                            a.total_log_none + b.total_log_none)
 
+    def reduce_data(self, state: MinMaxState, ax) -> MinMaxState:
+        """Gather every rank's state and fold them with :meth:`merge` in
+        rank order (exact for a state held wholly by one rank:
+        ``merge(init, x)`` is x bit for bit)."""
+        if ax is None:
+            return state
+        from ..db import distributed as dist
+        parts = dist._stack_gather([state], ax)
+        out = parts[0]
+        for part in parts[1:]:
+            out = self.merge(out, part)
+        return out
+
+    def reduce_model(self, state: MinMaxState, ax) -> MinMaxState:
+        return state        # tuples are replicated over the model axis
+
     def finalize(self, state: MinMaxState):
         """P(agg = v_j) = prod_{v_l better} Q_l * (1 - Q_j)  (§V-B.1), with
         Q_l = prod over tuples at value v_l of (1 - p).  Returns per-group
@@ -533,6 +590,13 @@ def _kernel_eligible(u: UDA, probs, values_integral: bool) -> bool:
     return isinstance(u, SumCumulants) and kops.cumulant_eligible(probs)
 
 
+def logcf_runs(num_freq: int, chunk_probs, values) -> bool:
+    """Does a one-group SumCF over chunks like ``chunk_probs`` with these
+    values run the logcf kernel (or, on the CPU, its plain version)?"""
+    return _kernel_eligible(SumCF(num_freq), chunk_probs,
+                            values is None or _integral(values))
+
+
 def _pad(x, pad: int, value=0):
     if not pad:
         return x
@@ -593,7 +657,8 @@ def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
         # A fresh non-streaming state stays unmaterialised: accumulate_full
         # receives None and skips the no-op merge with the init buffer.
         if udas[name].streaming:
-            states[name] = udas[name].init(max_groups, dtype, dev)
+            states[name] = udas[name].init(
+                1 if udas[name].scalar else max_groups, dtype, dev)
 
     scan_udas = {}
     for name, u in udas.items():
@@ -608,7 +673,8 @@ def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
             vals = val_sources[i] if isinstance(u, SumCF) else val_arrays[i]
             states[name] = u.accumulate_full(
                 states[name], probs, vals,
-                None if max_groups == 1 else gids_full, max_groups,
+                None if max_groups == 1 or u.scalar else gids_full,
+                1 if u.scalar else max_groups,
                 operands=cf_operands.get(name) if cf_operands else None)
         else:
             scan_udas[name] = u
@@ -620,10 +686,13 @@ def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
     p = _pad(probs, pad).view(-1, bsz)           # p = 0: no contribution
     g = _pad(gids_full, pad, max_groups - 1).view(-1, bsz)
     vs = [_pad(v, pad).view(-1, bsz) for v in val_arrays]
+    g0 = torch.zeros_like(g[0]) if any(
+        u.scalar for u in scan_udas.values()) else None
     for b in range(p.shape[0]):
         for name, u in scan_udas.items():
             states[name] = u.update(states[name], p[b],
-                                    vs[val_index[name]][b], g[b])
+                                    vs[val_index[name]][b],
+                                    g0 if u.scalar else g[b])
     return states
 
 
@@ -800,6 +869,19 @@ def cf_chunk_operands(num_freq: int, probs, values, gids, *,
                                       g[i * csz:(i + 1) * csz], num_freq,
                                       max_groups)
             for i in range(num_chunks)]
+
+
+def reduce_collective(udas, states, data_ax, model_ax=None):
+    """The distributed Merge: :meth:`UDA.reduce_data` over the
+    tuple-sharding ranks, then :meth:`UDA.reduce_model` over the model
+    ranks (MeshAxis handles, None to skip)."""
+    out = {}
+    for name, u in udas.items():
+        st = u.reduce_data(states[name], data_ax)
+        if model_ax is not None:
+            st = u.reduce_model(st, model_ax)
+        out[name] = st
+    return out
 
 
 def finalize(udas, states):

@@ -171,6 +171,76 @@ def fk_join(left: Table, right: Table, left_key: str, right_key: str,
     return Table(cols, prob, valid, left.part)
 
 
+
+# ------------------------------------------- shuffle-exchange bucket math
+def bucket_slots(dest, ok, n_shards: int, capacity: int):
+    """Static-shape send-bucket slot assignment for a shuffle exchange.
+
+    Row i with ``ok[i]`` goes to bucket ``dest[i]`` (in [0, n_shards)) at
+    its rank among earlier ok-rows of the same destination; ranks at or
+    past ``capacity`` overflow and are dropped (but counted).  Rows with
+    ``ok[i]`` False are parked in a phantom bucket and never sent.
+
+    Returns ``(slot, sent, overflow_count)``: ``slot[i]`` indexes the flat
+    (n_shards * capacity,) send buffer, and equals the buffer size exactly
+    for unsent rows; ``sent = ok & fits``; ``overflow_count`` = ok rows
+    dropped for capacity.  Integer math on stable sorts, no host sync."""
+    n = dest.shape[0]
+    dev = dest.device
+    d = torch.where(ok, dest.to(torch.int64),
+                    torch.full((n,), n_shards, dtype=torch.int64,
+                               device=dev))
+    order = torch.sort(d, stable=True).indices
+    ds = d[order]
+    # rank within its destination run = sorted position - run start
+    starts = torch.searchsorted(ds, torch.arange(n_shards + 1, device=dev))
+    rank_sorted = torch.arange(n, device=dev) - starts[
+        torch.clamp(ds, 0, n_shards)]
+    rank = torch.empty((n,), dtype=torch.int64, device=dev)
+    rank[order] = rank_sorted
+    sent = ok & (rank < capacity)
+    slot = torch.where(sent, d * capacity + rank,
+                       torch.full_like(d, n_shards * capacity))
+    overflow = torch.sum(ok & ~sent)
+    return slot.to(torch.int32), sent, overflow
+
+
+def bucket_fill_index(slot, size: int):
+    """Inverse of a bucket slot assignment: ``inv[s]`` = the row filling
+    buffer slot s, or ``n`` (the zero-pad row) for empty slots.  Sent rows
+    occupy distinct slots, so one int32 scatter builds it (unsent rows all
+    land in one extra slot, cut off)."""
+    n = slot.shape[0]
+    inv = torch.full((size + 1,), n, dtype=torch.int32, device=slot.device)
+    inv.scatter_(0, slot.to(torch.int64),
+                 torch.arange(n, dtype=torch.int32, device=slot.device))
+    return inv[:size]
+
+
+def scatter_to_buckets(cols: dict, slot, size: int, inv=None) -> dict:
+    """Place rows into the flat (size,) send buffer at ``slot`` (unsent
+    rows carry slot == size and are dropped); empty slots are zero.  One
+    shared :func:`bucket_fill_index` and a gather per column from a
+    zero-padded copy."""
+    if inv is None:
+        inv = bucket_fill_index(slot, size)
+    idx = inv.to(torch.int64)
+    out = {}
+    for k, v in cols.items():
+        pad = torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
+        out[k] = pad[idx]
+    return out
+
+
+def take_from_buckets(cols: dict, slot, sent) -> dict:
+    """Inverse of :func:`scatter_to_buckets` for response routing: read
+    each row's bucket slot back (zero / False for unsent rows)."""
+    out = {}
+    for k, v in cols.items():
+        safe = v[torch.clamp(slot.to(torch.int64), 0, v.shape[0] - 1)]
+        out[k] = torch.where(sent, safe, torch.zeros_like(safe))
+    return out
+
 # ------------------------------------------------- grouped aggregation UDAs
 def group_atleastone(table: Table, ids, max_groups: int):
     """Per-group confidence 1 - prod(1-p) — the 'group confidence' query

@@ -2,11 +2,10 @@
 sharded relational frontend — the port's copy of ``repro.db.physical``,
 which is free of JAX but imported through a package that is not.
 
-The port's executor (``repro_torch.db.plans``) runs the single-device
-lowering (``sharded=False``: ShardScan / StreamedScan / Select / Map /
-GatherJoin / PartialAgg + MergeAgg); the sharded and exchange strategies
-are lowered and explained here exactly as in the reference, and their
-execution waits for the multi-rank slice of the port.
+The port's executor (``repro_torch.db.plans``) runs every strategy
+lowered here, the sharded and exchange ones over ``torch.distributed``
+ranks (``repro_torch.db.distributed``).  One difference from the
+reference: ``bucket_floor`` also lifts histogram-sized buckets.
 
 ``repro_torch.db.plans.compile_plan`` splits compilation into two stages:
 
@@ -720,8 +719,8 @@ def lower_plan(root, caps: dict, *, n_shards: int = 1, sharded: bool = False,
     only ``caps`` keep the deterministic slack sizing.  Pure: no table
     DATA is consumed beyond the optional key histograms.
 
-    ``bucket_floor`` raises every slack-sized exchange bucket to at least
-    this many rows (still capped at the sender's local rows, where
+    ``bucket_floor`` raises every exchange bucket to at least this many
+    rows (still capped at the sender's local rows, where
     overflow is impossible) — the retry controller's concrete-capacity
     escalation: re-lowering with the observed peak demand from
     ``ExecutionReport.exchange_demand`` as the floor makes the retried
@@ -771,16 +770,21 @@ def lower_plan(root, caps: dict, *, n_shards: int = 1, sharded: bool = False,
         the concrete-key histogram when available (memoized per base
         table and key — the fused enumeration prices the same exchange
         for several candidates), slack sizing else."""
+        local_rows = -(-rows // n_shards)
         scan = lineage_scan(logical, key)
+        cap = None
         if scan is not None and tables is not None:
             ck = (scan.name, key)
             if ck not in hist_cache:
                 hist_cache[ck] = concrete_bucket_capacity(
                     tables.get(scan.name), key, n_shards)
-            if hist_cache[ck] is not None:
-                return hist_cache[ck]
-        local_rows = -(-rows // n_shards)
-        cap = bucket_capacity(local_rows, n_shards, m.shuffle_slack)
+            cap = hist_cache[ck]
+        if cap is None:
+            cap = bucket_capacity(local_rows, n_shards, m.shuffle_slack)
+        # The floor lifts histogram-sized buckets too: the histogram of a
+        # stale stats table can undersize a bucket, and the retry
+        # controller's observed demand must reach it (the JAX package
+        # floors only the slack-sized ones).
         if bucket_floor is not None:
             cap = max(cap, min(bucket_floor, local_rows))
         return cap

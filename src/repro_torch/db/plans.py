@@ -19,8 +19,10 @@ per-chunk states fold in the same tree, so streamed equals resident bit
 for bit.  ``with_report=True`` returns an
 :class:`repro_torch.db.report.ExecutionReport` beside the result, and
 :func:`run_plan` re-runs a plan with escalated parameters until its report
-is clean.  Mesh compiles belong to the multi-rank slice of the port and
-raise ``NotImplementedError``.
+is clean.  ``compile_plan(root, mesh)`` runs the same plan on every rank of
+a :class:`repro_torch.launch.mesh.Mesh` (one process per rank, collectives
+in :mod:`repro_torch.db.distributed`) and returns the same bits as
+``mesh=None`` for any data-rank count.
 
 Node zoo (Table I rows in brackets):
 
@@ -43,8 +45,11 @@ import torch
 
 from ..core import uda
 from ..core.config import resolve_device
+from ..kernels import pb_cf
+from ..launch.mesh import Mesh
 from ..testing import faults
 from . import cost as C
+from . import distributed as dist
 from . import operators as ops
 from . import physical as phys
 from .report import ReportBuilder, nan_count
@@ -172,7 +177,8 @@ def plan_params(root: Node) -> frozenset:
 
 
 def _agg_uda(agg: str, method: str, kappa: int, num_freq: int = 0,
-             freq_lo: int = 0, freq_cnt: int | None = None) -> uda.UDA:
+             freq_lo: int = 0, freq_cnt: int | None = None,
+             half: bool = False) -> uda.UDA:
     if agg in ("MIN", "MAX"):
         if method == "exact":
             raise ValueError(
@@ -190,7 +196,8 @@ def _agg_uda(agg: str, method: str, kappa: int, num_freq: int = 0,
             raise ValueError(
                 "GroupAgg(method='exact') needs num_freq = max aggregate "
                 "value + 1 (the static distribution capacity)")
-        return uda.SumCF(num_freq, freq_lo=freq_lo, freq_cnt=freq_cnt)
+        return uda.SumCF(num_freq, freq_lo=freq_lo, freq_cnt=freq_cnt,
+                         half=half)
     raise ValueError(
         f"GroupAgg method {method!r} is not supported by the planner "
         "(expected 'normal', 'cumulants' or 'exact')")
@@ -239,10 +246,43 @@ def _pass_slabs(pa, cf_budget_elems: int) -> tuple:
     return exact_names, slabs
 
 
-def _slab_udas(pa, si: int, lo: int, cnt: int, values: dict) -> tuple:
+def _mirrored(pa, exact_names, slabs, chunk_probs, values) -> bool:
+    """Does this scalar (one-group) pass run its exact aggregates through
+    the logcf kernel (or its plain version) on chunks like
+    ``chunk_probs``?  That kernel computes k <= N/2 and mirrors the rest."""
+    return (pa.max_groups == 1 and len(slabs) == 1 and bool(exact_names)
+            and all(uda.logcf_runs(pa.num_freq, chunk_probs, values[n])
+                    for n in exact_names))
+
+
+def _model_freq_split(cnt: int, model_size: int, scalar: bool,
+                      mirrored: bool) -> tuple | None:
+    """(split columns, per-model-rank width) of one exact-CF slab of
+    ``cnt`` frequencies, or None when it does not split: no model axis,
+    too few columns for every rank to get one, or a scalar (one-group)
+    pass whose chunks do not run the logcf kernel.  Rank r accumulates the
+    window [lo + r*f_loc, lo + (r+1)*f_loc) of the split columns, cut at
+    their end; each frequency column is computed on its own, so the
+    windows gathered by ``SumCF.reduce_model`` are the unsplit columns bit
+    for bit.  A ``mirrored`` scalar pass (:func:`_mirrored`) splits the
+    kernel's N/2 + 1 columns and mirrors them after the gather; a scalar
+    pass on the block loop stays whole (its one-group sum is not the same
+    column by column at every width)."""
+    if model_size <= 1 or (scalar and not mirrored):
+        return None
+    width = cnt // 2 + 1 if scalar else cnt
+    f_loc = -(-width // model_size)
+    return (width, f_loc) if (model_size - 1) * f_loc < width else None
+
+
+def _slab_udas(pa, si: int, lo: int, cnt: int, values: dict,
+               model_rank: int = 0, model_size: int = 1,
+               mirrored: bool = False) -> tuple:
     """UDA dict + value dict of frequency-slab pass ``si``: pass 0 carries
     confidence and every non-exact aggregate; every pass carries the exact
-    aggregates' (lo, cnt) frequency window."""
+    aggregates' (lo, cnt) frequency window, or with a model axis this
+    model rank's part of it (:func:`_model_freq_split`; the caller
+    reassembles the slab with :func:`_gather_model_slabs`)."""
     udas_i: dict = {}
     vals_i: dict = {}
     if si == 0:
@@ -252,12 +292,47 @@ def _slab_udas(pa, si: int, lo: int, cnt: int, values: dict) -> tuple:
             if method != "exact":
                 udas_i[name] = _agg_uda(agg, method, pa.kappa)
                 vals_i[name] = values[name]
+    scalar = pa.max_groups == 1
+    split = _model_freq_split(cnt, model_size, scalar, mirrored)
+    if split is not None:
+        width, f_loc = split
+        start = lo + model_rank * f_loc
+        lo, cnt = start, min(f_loc, lo + width - start)
     for name, _value, agg, method in pa.specs:
         if method == "exact":
             udas_i[name] = _agg_uda(agg, method, pa.kappa, pa.num_freq, lo,
-                                    cnt)
+                                    cnt, half=scalar and split is not None)
             vals_i[name] = values[name]
     return udas_i, vals_i
+
+
+def _gather_model_slabs(udas_i: dict, sts: dict, exact_names, cnt: int,
+                        max_ax, scalar: bool, mirrored: bool) -> dict:
+    """Reassemble model-split exact-CF windows into the full slab of
+    ``cnt`` frequencies: each rank's window padded to the common width,
+    one gather along the last axis (``SumCF.reduce_model``), the pad cut,
+    and a scalar pass's N/2 + 1 columns mirrored.  No-op when
+    :func:`_slab_udas` did not split."""
+    split = (None if max_ax is None else
+             _model_freq_split(cnt, max_ax.size, scalar, mirrored))
+    if split is None:
+        return sts
+    width, f_loc = split
+    out = dict(sts)
+    for name in exact_names:
+        st = sts[name]
+        pad = f_loc - st.log_abs.shape[-1]
+        if pad:
+            st = uda.CFState(torch.nn.functional.pad(st.log_abs, (0, pad)),
+                             torch.nn.functional.pad(st.angle, (0, pad)))
+        st = udas_i[name].reduce_model(st, max_ax)
+        st = uda.CFState(st.log_abs[..., :width].contiguous(),
+                         st.angle[..., :width].contiguous())
+        if scalar:
+            st = uda.CFState(*pb_cf.mirror(st.log_abs, st.angle,
+                                           udas_i[name].num_freq))
+        out[name] = st
+    return out
 
 
 def _append_slab(states: dict, udas: dict, udas_i: dict, sts: dict) -> None:
@@ -426,22 +501,81 @@ def _on_device(t, dev: torch.device) -> Table:
                  t.prob.to(dev), t.valid.to(dev), t.part)
 
 
+def shard_capacity(capacity: int, canonical_chunks: int, shards: int) -> int:
+    """The padded capacity a mesh compile gives a base table: the
+    canonical chunk grid (chunk size csz = ceil(n / chunks)), then whole
+    padding chunks until every data rank owns the same number of chunk
+    slots: shards * ceil(chunks / shards) * csz rows.  Padding chunks hold
+    only invalid p = 0 rows and get no state."""
+    csz = -(-capacity // canonical_chunks)
+    local = -(-canonical_chunks // shards)
+    return shards * local * csz
+
+
+class _PaddedView:
+    """A device table seen at its (larger) shard-padded capacity, without
+    the copy: what the lowering's key histograms
+    (``physical.concrete_bucket_capacity``) read.  Rows past the stored
+    ones are invalid, so they are never counted."""
+
+    def __init__(self, t: Table, capacity: int):
+        self.columns = t.columns
+        self.valid = t.valid
+        self.capacity = capacity
+
+
+def _block(t, start: int, rows: int, dev: torch.device) -> Table:
+    """Rows [start, start + rows) of a base table as a Table on ``dev``,
+    invalid p = 0 zeros past its stored rows."""
+    if isinstance(t, HostTable):
+        return _on_device(t.slab(start, rows), dev)
+    stop = min(start + rows, t.capacity)
+    sl = slice(min(start, stop), stop)
+    cut = Table({k: v[sl] for k, v in t.columns.items()}, t.prob[sl],
+                t.valid[sl], t.part)
+    return _on_device(cut.pad_to(rows), dev)
+
+
+def _chunk_parts(udas_d, probs, values: dict, ids, mg: int, real: int,
+                 nslots: int, cf_operands=None) -> list:
+    """Per-chunk-slot states of ``nslots`` equal slots of the columns: the
+    first ``real`` chunks accumulated, the rest (padding chunks past the
+    canonical grid) init states that launch nothing."""
+    rows = real * (probs.shape[0] // nslots)
+    cut: dict = {}
+    vals = {k: None if v is None else cut.setdefault(id(v), v[:rows])
+            for k, v in values.items()}
+    parts = uda.accumulate_chunk_states(
+        udas_d, probs[:rows], vals, ids[:rows], max_groups=mg,
+        num_chunks=real, cf_operands=cf_operands) if real else []
+    fill = {name: u.init(mg, probs.dtype, probs.device)
+            for name, u in udas_d.items()}
+    return parts + [fill] * (nslots - real)
+
+
 def compile_plan(root: Node, mesh=None, *,
+                 data_axes=("data",),
+                 model_axis: str | None = "model",
                  cf_budget_elems: int = 1 << 22,
                  canonical_chunks: int = 8,
+                 join_gather_budget: int = 1 << 20,
+                 shuffle_slack: float = 4.0,
+                 copartition: object = False,
+                 agg_shuffle_budget: int | None = None,
+                 cost_model=None,
                  device_row_budget: int | None = None,
                  stream_wave_chunks: int | None = None,
                  stream_double_buffer: bool = True,
                  stream_prune_columns: bool = True,
                  stream_wave_retries: int = 2,
-                 with_report: bool = False,
-                 device="cuda",
                  stats_tables=None,
-                 shuffle_slack: float | None = None,
-                 shuffle_bucket_floor: int | None = None):
+                 with_report: bool = False,
+                 shuffle_bucket_floor: int | None = None,
+                 device="cuda"):
     """Emit a function ``(tables, params=None) -> result`` (a Table or a
     dict of tensors), or ``-> (result, ExecutionReport)`` with
-    ``with_report=True``.
+    ``with_report=True``.  ``compiled.explain(tables)`` renders the
+    physical plan the call would run (``physical.explain``).
 
     ``canonical_chunks`` is the fixed accumulation grid of every pass;
     ``cf_budget_elems`` bounds the live exact-CF state elements of a
@@ -449,87 +583,200 @@ def compile_plan(root: Node, mesh=None, *,
     aggregate), above which the pass runs over frequency slabs.  A plan
     over device Tables runs where they live.
 
+    Mesh execution: with ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`,
+    one per rank) the plan lowers to the sharded physical plan and every
+    rank runs it: each rank is given the same global tables, works on its
+    contiguous row block of the shard-padded tables (:func:`shard_capacity`)
+    over the ``data_axes`` ranks, exchanges through
+    :mod:`repro_torch.db.distributed`, and returns the replicated result,
+    the same bits as ``mesh=None`` for any data-rank count.  With a
+    ``model_axis`` of more than one rank, each grouped exact-CF slab is
+    also split into per-model-rank frequency windows and gathered back.
+    ``join_gather_budget`` caps the FK-join build rows that may be
+    gathered; larger build sides hash-exchange (ShuffleJoin), and a GROUP
+    BY on the probe join key may take the co-partitioned pipeline
+    (CoPartitionedJoin + PartitionedAgg; ``copartition`` True / "auto"
+    (the costs choose) / False).  ``agg_shuffle_budget`` makes single-key
+    aggregations over more rows Repartition to their group owners.  A
+    PartitionedAgg owner runs the whole canonical chunk grid (its own rows
+    at their global positions, every other row p = 0), so the pipeline
+    does ranks x the accumulate work of one device; ``copartition``
+    therefore defaults to False here (the JAX package's default is
+    "auto").  ``cost_model`` replaces the
+    knob-derived :class:`repro_torch.db.cost.CostModel`.  Exchange bucket
+    capacities come from the concrete ``key % n_shards`` histogram of the
+    global tables (every rank computes the same, with no collective), or
+    of ``stats_tables`` when given (name -> Table or HostTable: stale
+    stats can overflow, which NaN-poisons the join and shows in the
+    report); keys computed on the way are sized at ``shuffle_slack`` times
+    the uniform share.  ``shuffle_bucket_floor`` raises every bucket to at
+    least that many rows (the retry controller's escalation).
+
     Out-of-core execution: ``device_row_budget`` caps the resident rows of
-    any one base table.  A Scan over the budget lowers to
+    any one base table per rank.  A Scan over the budget lowers to
     :class:`repro_torch.db.physical.StreamedScan` and its table stays on
     the host (pass a :class:`repro_torch.db.table.HostTable`; a Table is
     pulled to the host).  The aggregation pass above that scan then runs
     as WAVES: each ships one chunk-aligned slab to ``device`` (the card by
-    default) and files its per-canonical-chunk UDA states into a
+    default; a mesh's device, where each rank ships only its own run of
+    chunk slots) and files its per-canonical-chunk UDA states into a
     :class:`repro_torch.core.uda.ChunkStateAccumulator`; the canonical
     fold runs once after the last wave, so the result is the same bits as
     the resident compile for any wave size.  On the card a worker thread
     cuts slab w+1 into a pinned buffer and copies it on a side stream
     while wave w runs, through two buffers, so the device holds two slabs
     plus the group-level state; ``stream_double_buffer=False`` serialises
-    cut, copy and compute (the control).  ``stream_wave_chunks`` pins the wave
-    size (chunk slots per wave); ``stream_prune_columns`` (default on)
-    ships only the columns the plan above the scan reads and widens the
-    waves to match.  Resident tables, and HostTables that do not stream,
-    are materialised on ``device``.  ``stream_wave_retries`` bounds the
-    in-place re-ships of a faulted slab copy before the
+    cut, copy and compute (the control).  ``stream_wave_chunks`` pins the
+    wave size (chunk slots per wave); ``stream_prune_columns`` (default
+    on) ships only the columns the plan above the scan reads and widens
+    the waves to match.  Resident tables, and HostTables that do not
+    stream, are materialised on ``device``.  ``stream_wave_retries`` bounds
+    the in-place re-ships of a faulted slab copy before the
     :class:`~repro_torch.testing.faults.TransferFault` propagates,
     annotated with the halved wave size for :func:`run_plan`; completed
     waves are never re-streamed.  Only the tables the plan scans are
     materialised.
 
     ``with_report=True`` also returns an
-    :class:`~repro_torch.db.report.ExecutionReport`: group-code-table
-    overflow, per-MIN/MAX truncation mass and NaN counts of the folded
-    states of every pass, and wave progress of a streamed run.  Without
-    it no diagnostic is computed.
-
-    ``mesh``, ``stats_tables``, ``shuffle_slack`` and
-    ``shuffle_bucket_floor`` belong to the multi-rank slice of the port
-    and raise ``NotImplementedError``."""
-    for name, value in (("mesh", mesh), ("stats_tables", stats_tables),
-                        ("shuffle_slack", shuffle_slack),
-                        ("shuffle_bucket_floor", shuffle_bucket_floor)):
-        if value is not None:
-            raise NotImplementedError(
-                f"compile_plan({name}=...) waits for the multi-rank slice "
-                "of the port (torch.distributed)")
+    :class:`~repro_torch.db.report.ExecutionReport`: per-exchange overflow,
+    demand and capacity, group-code-table overflow, per-MIN/MAX truncation
+    mass and NaN counts of the folded states of every pass, and wave
+    progress of a streamed run (the same on every rank).  Without it no
+    diagnostic is computed."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
     chunks = canonical_chunks
     if chunks <= 0:
         raise ValueError(f"canonical_chunks must be positive, got {chunks}")
+    names = dist._data_axes(mesh, data_axes) if mesh is not None else ()
+    ax = mesh.axis(names) if names else None
+    shards = ax.size if ax is not None else 1
+    rank = dist.data_rank(ax)
+    model = dist._model_axis(mesh, model_axis) if mesh is not None else None
+    max_ax = mesh.axis(model) if model else None
+    model_size = max_ax.size if max_ax is not None else 1
+    model_rank = mesh.coords[model] if model else 0
+    local_chunks = -(-chunks // shards)
+    # this rank's real chunk slots (slots past the grid only pad)
+    real_local = max(0, min(local_chunks, chunks - rank * local_chunks))
     needed_params = plan_params(root)
+    if stats_tables:
+        # Host-side stand-ins for the bucket sizing, padded as the
+        # runtime tables are.
+        stats_tables = {
+            k: (st if isinstance(st, HostTable)
+                else HostTable.from_table(st)).pad_to_multiple(chunks)
+            .pad_to(shard_capacity(st.capacity, chunks, shards))
+            for k, st in stats_tables.items()}
+    # Canonical (chunk-grid only) capacities of the base tables, set by
+    # `lower`: the rows a relational result has under mesh=None.
+    canon_caps: dict = {}
+
+    def _canonical_rows(pnode) -> int:
+        """Output rows of a relational subtree under mesh=None padding
+        (row capacity follows the probe / left lineage to its scan)."""
+        if isinstance(pnode, (phys.ShardScan, phys.StreamedScan)):
+            return canon_caps[pnode.name]
+        if isinstance(pnode, (phys.PhysSelect, phys.PhysMap,
+                              phys.Repartition)):
+            return _canonical_rows(pnode.child)
+        if isinstance(pnode, (phys.GatherJoin, phys.ShuffleJoin,
+                              phys.CoPartitionedJoin)):
+            return _canonical_rows(pnode.left)
+        if isinstance(pnode, phys.MergeAgg):
+            return pnode.child.max_groups
+        raise TypeError(pnode)
 
     def make_runner(tables: Dict[str, Table], rb: ReportBuilder | None = None,
                     params: dict | None = None):
-        """Bind the physical-plan interpreter to one dict of tables.  The
-        streamed executor binds the SAME interpreter to every wave's slab
-        (the StreamedScan resolves to the slab), so resident and streamed
-        execution share one code path below the aggregation."""
+        """Bind the physical-plan interpreter to one dict of tables (this
+        rank's blocks on a mesh).  The streamed executor binds the SAME
+        interpreter to every wave's slab (the StreamedScan resolves to the
+        slab), so resident and streamed execution share one code path
+        below the aggregation."""
+
+        def sharded(t: Table) -> bool:
+            return ax is not None and isinstance(t.part, phys.RowBlocked)
+
+        def hash_partitioned(t: Table) -> bool:
+            return ax is not None and isinstance(t.part,
+                                                 phys.HashPartitioned)
+
+        def rel_group_ids(t: Table, keys, mg):
+            if sharded(t) or hash_partitioned(t):
+                return dist.group_ids_sharded(t, list(keys), mg, ax)
+            return ops.group_ids(t, list(keys), mg)
+
+        def rel_key_columns(t: Table, keys, ids, mg):
+            if sharded(t) or hash_partitioned(t):
+                return dist.group_key_columns_sharded(t, keys, ids, mg, ax)
+            return ops.group_key_columns(t, keys, ids, mg)
 
         def run_agg(node: phys.MergeAgg):
             """Group ids, then per frequency slab one chunked Accumulate
-            + canonical fold, then the Finalize selected by ``kind``."""
+            and its Merge (the canonical fold; on a mesh
+            ``allgather_merge`` for a row-partitioned pass,
+            ``partitioned_merge`` for a hash-partitioned one), then the
+            Finalize selected by ``kind``."""
             pa = node.child
             t = run(pa.child)
             mg = pa.max_groups
-            ids, merged, gvalid = ops.group_ids(t, list(pa.keys), mg)
+            ids, merged, gvalid = rel_group_ids(t, pa.keys, mg)
             label = rb.begin_agg(node.kind) if rb is not None else ""
             if rb is not None:
                 code_live, big = ops.live_key_codes(t, list(pa.keys))
-                rb.group_overflow(label, _lost_group_count(
-                    code_live, big, merged, ids))
+                lost = _lost_group_count(code_live, big, merged, ids)
+                if sharded(t) or hash_partitioned(t):
+                    # each rank counted its own rows (a replicated input
+                    # counts every row on every rank: no sum)
+                    lost = dist.psum(lost, ax)
+                rb.group_overflow(label, lost)
             values = _pass_values(pa.specs, t)
+            probs, acc_ids = t.masked_prob(), ids
+            nslots, real = chunks, chunks
+            if hash_partitioned(t):
+                # The owner's rows at their canonical positions: the same
+                # chunked accumulate as mesh=None for its own groups.
+                probs, values, acc_ids = dist.chunk_columns(
+                    probs, values, ids, t[phys.CHUNK_COL], t[dist.ROW_COL],
+                    t.valid, chunk_size=_canonical_rows(pa.child) // chunks,
+                    num_chunks=chunks, max_groups=mg)
+            elif sharded(t):
+                nslots, real = local_chunks, real_local
             exact_names, slabs = _pass_slabs(pa, cf_budget_elems)
-            probs = t.masked_prob()
-            cf_operands = _cf_operands(pa, exact_names, slabs, probs,
-                                       values, ids, chunks)
+            rows = real * (probs.shape[0] // nslots)
+            mirrored = model_size > 1 and _mirrored(
+                pa, exact_names, slabs, probs[:probs.shape[0] // nslots],
+                values)
+            cf_operands = _cf_operands(pa, exact_names, slabs, probs[:rows],
+                                       values, acc_ids[:rows], real) \
+                if real else {}
             udas: dict = {}
             states: dict = {}
             for si, (lo, cnt) in enumerate(slabs):
-                udas_i, vals_i = _slab_udas(pa, si, lo, cnt, values)
-                _append_slab(states, udas, udas_i, uda.accumulate_chunked(
-                    udas_i, probs, vals_i, ids, max_groups=mg,
-                    num_chunks=chunks, cf_operands=cf_operands or None))
+                udas_i, vals_i = _slab_udas(pa, si, lo, cnt, values,
+                                            model_rank, model_size, mirrored)
+                if sharded(t) or hash_partitioned(t):
+                    parts = _chunk_parts(udas_i, probs, vals_i, acc_ids,
+                                         mg, real, nslots,
+                                         cf_operands or None)
+                    sts = (dist.allgather_merge(udas_i, parts, ax, chunks,
+                                                shards) if sharded(t)
+                           else dist.partitioned_merge(udas_i, parts, ax,
+                                                       shards))
+                else:
+                    sts = uda.accumulate_chunked(
+                        udas_i, probs, vals_i, acc_ids, max_groups=mg,
+                        num_chunks=chunks, cf_operands=cf_operands or None)
+                sts = _gather_model_slabs(udas_i, sts, exact_names, cnt,
+                                          max_ax, mg == 1, mirrored)
+                _append_slab(states, udas, udas_i, sts)
             for name in exact_names:            # full-range Finalize UDA
                 udas[name] = _agg_uda("SUM", "exact", pa.kappa, pa.num_freq)
             return _finalize_pass(
                 node, pa, udas, states, gvalid,
-                lambda cols: ops.group_key_columns(t, cols, ids, mg),
+                lambda cols: rel_key_columns(t, cols, ids, mg),
                 rb=rb, label=label, params=params)
 
         def run(node: phys.PhysNode):
@@ -550,22 +797,67 @@ def compile_plan(root: Node, mesh=None, *,
                     else fn(t)
                 return t.with_column(node.name, col)
             if isinstance(node, phys.GatherJoin):
-                return ops.fk_join(run(node.left), run(node.right),
-                                   node.left_key, node.right_key,
+                lt, rt = run(node.left), run(node.right)
+                if sharded(rt):
+                    # the small build side, gathered: key + carried cols
+                    rt = dist.gather_table(rt.select_columns(
+                        dict.fromkeys((node.right_key,)
+                                      + tuple(node.right_cols))), ax)
+                return ops.fk_join(lt, rt, node.left_key, node.right_key,
                                    list(node.right_cols))
+            if isinstance(node, phys.ShuffleJoin):
+                lt, rt = run(node.left), run(node.right)
+                lbl = rb.begin_exchange("shuffle_join") if rb else ""
+                return dist.shuffle_fk_join(
+                    lt, rt, node.left_key, node.right_key,
+                    list(node.right_cols), ax, n_shards=shards,
+                    build_bucket=node.build_bucket,
+                    probe_bucket=node.probe_bucket, report=rb, label=lbl)
+            if isinstance(node, phys.CoPartitionedJoin):
+                lt, rt = run(node.left), run(node.right)
+                lbl = rb.begin_exchange("copart_join") if rb else ""
+                return dist.copartitioned_fk_join(
+                    lt, rt, node.left_key, node.right_key,
+                    list(node.right_cols), list(node.carry_cols), ax,
+                    n_shards=shards, build_bucket=node.build_bucket,
+                    probe_bucket=node.probe_bucket,
+                    chunk_size=_canonical_rows(node.left) // chunks,
+                    num_chunks=chunks, report=rb, label=lbl)
+            if isinstance(node, phys.Repartition):
+                t = run(node.child)
+                lbl = rb.begin_exchange("repartition") if rb else ""
+                return dist.repartition_by_key(
+                    t, node.key, list(node.carry_cols), ax,
+                    n_shards=shards, bucket=node.bucket,
+                    chunk_size=_canonical_rows(node.child) // chunks,
+                    num_chunks=chunks, report=rb, label=lbl)
             if isinstance(node, phys.MergeAgg):
                 return run_agg(node)
-            raise NotImplementedError(
-                f"{type(node).__name__} is a mesh strategy: it waits for the "
-                "multi-rank slice of the port")
+            raise TypeError(node)
 
-        return run
+        return run, sharded
+
+    def interpret(tables: Dict[str, Table], proot, rb=None, params=None):
+        """Run a physical plan on one dict of tables; a row-partitioned
+        Table result is gathered and cut to its mesh=None capacity."""
+        run, sharded = make_runner(tables, rb, params)
+        out = run(proot)
+        if isinstance(out, Table):
+            if sharded(out):
+                out = dist.gather_table(out, ax)
+                n = _canonical_rows(proot)
+                out = Table({k: v[:n] for k, v in out.columns.items()},
+                            out.prob[:n], out.valid[:n], out.part)
+            out = out.with_part(phys.Replicated())
+        return out
 
     # ------------------------------------------------- streamed execution
     def _stream(ht: HostTable, sched, dev: torch.device, wave_call,
                 collect) -> int:
         """The wave loop over one streamed table: ship slab w, run
         ``wave_call(w, slab)``, file the output with ``collect(w, out)``.
+        On a mesh each rank ships only its own run of the wave: rank r's
+        chunk slots start at row r * n_waves * lcpw * csz.
 
         A slab is cut into one of two host buffers (``np.copyto`` through
         the buffer's numpy view; pinned when ``dev`` is the card) and, on
@@ -589,6 +881,7 @@ def compile_plan(root: Node, mesh=None, *,
         annotated with the halved wave size for :func:`run_plan`.  Returns
         the number of re-ships."""
         lrows = sched.local_chunks_per_wave * sched.chunk_rows
+        base = rank * sched.n_waves * lrows
         cuda = dev.type == "cuda"
         hbufs = (ht.alloc_slab(lrows, dev), ht.alloc_slab(lrows, dev))
         dbufs = [Table({k: torch.empty_like(v, device=dev)
@@ -610,9 +903,10 @@ def compile_plan(root: Node, mesh=None, *,
         def ship(w, gate):
             if gate is not None:
                 gate.synchronize()
-            faults.on_transfer(w, lrows)
+            faults.on_transfer(w, lrows * shards)
             t0 = time.perf_counter()
-            slab = ht.wave_slab((w * lrows,), lrows, out=hbufs[w % 2])
+            slab = ht.wave_slab((base + w * lrows,), lrows,
+                                out=hbufs[w % 2])
             _STREAM_STATS["slice_s"] += time.perf_counter() - t0
             _STREAM_STATS["slab_bytes"] += wave_bytes
             _STREAM_STATS["waves"] += 1
@@ -678,11 +972,13 @@ def compile_plan(root: Node, mesh=None, *,
                 a.elapsed_time(b) for a, b in copies) / 1e3
         return n_retries
 
-    def _streamed_exec(proot, padded, dev: torch.device,
+    def _streamed_exec(proot, resident, host, dev: torch.device,
                        rb: ReportBuilder | None, params: dict):
         """Run a physical plan containing a StreamedScan: the lowest
         aggregation pass above the scan executes as waves; any plan suffix
-        above that pass runs resident on the pass's group-level output."""
+        above that pass runs resident on the pass's group-level output.
+        ``resident`` holds this rank's resident tables, ``host`` the base
+        tables as given."""
         scans = [n for n in _iter_phys(proot)
                  if isinstance(n, phys.StreamedScan)]
         if len(scans) > 1:
@@ -700,7 +996,7 @@ def compile_plan(root: Node, mesh=None, *,
                 "materialise it first via HostTable.to_table()")
         pa = agg.child
         sched = sc.schedule
-        ht = padded[sc.name]
+        ht = host[sc.name]
         ht = (ht if isinstance(ht, HostTable)
               else HostTable.from_table(ht)).pad_to(sched.padded_capacity)
         if sc.columns is not None:
@@ -708,9 +1004,6 @@ def compile_plan(root: Node, mesh=None, *,
             # lowering recorded (plus prob/valid, always).
             ht = ht.select_columns([c for c in sc.columns
                                     if c in ht.columns])
-        resident = {n.name: _on_device(padded[n.name], dev)
-                    for n in _iter_phys(proot)
-                    if isinstance(n, phys.ShardScan)}
         mg = pa.max_groups
         keys = list(pa.keys)
         kcols = list(pa.keys)
@@ -720,19 +1013,24 @@ def compile_plan(root: Node, mesh=None, *,
                 kcols.append(agg.threshold_col)
         exact_names, slabs = _pass_slabs(pa, cf_budget_elems)
         lcpw = sched.local_chunks_per_wave
+        lslots = sched.n_waves * lcpw
 
         def spine(slab: Table) -> Table:
             return make_runner({**resident, sc.name: slab},
-                               params=params)(pa.child)
+                               params=params)[0](pa.child)
 
         # Phase A: stream once for the global group-code table.  Merging
-        # the per-wave tables of the max_groups smallest codes keeps the
-        # max_groups smallest overall: the resident table, bit for bit.
+        # the per-wave (and per-rank) tables of the max_groups smallest
+        # codes keeps the max_groups smallest overall: the resident table,
+        # bit for bit.
         code_tabs: list = [None] * sched.n_waves
 
         def wave_a(w, slab):
             code_live, _ = ops.live_key_codes(spine(slab), keys)
-            return ops.merge_group_codes(code_live, mg)
+            local = ops.merge_group_codes(code_live, mg)
+            if ax is not None:
+                local = ops.merge_group_codes(dist.all_gather(local, ax), mg)
+            return local
 
         retries = _stream(ht, sched, dev, wave_a,
                           lambda w, out: code_tabs.__setitem__(w, out))
@@ -755,30 +1053,41 @@ def compile_plan(root: Node, mesh=None, *,
             ids = ops.codes_to_ids(code_live, merged)
             lost = (_lost_group_count(code_live, big, merged, ids)
                     if rb is not None else None)
+            if lost is not None and ax is not None:
+                lost = dist.psum(lost, ax)
             # Chunk slots past the canonical grid only pad the schedule
-            # (invalid rows): they get no state, and launch no kernel.
-            real = min(lcpw, chunks - w * lcpw)
-            rows = real * sched.chunk_rows
-            cut: dict = {}
-            values = {k: None if v is None
-                      else cut.setdefault(id(v), v[:rows])
-                      for k, v in _pass_values(pa.specs, t).items()}
-            probs, cids = t.masked_prob()[:rows], ids[:rows]
-            cf_operands = _cf_operands(pa, exact_names, slabs, probs,
-                                       values, cids, real)
+            # (invalid rows): they get init states, and launch no kernel.
+            real = max(0, min(lcpw, chunks - rank * lslots - w * lcpw))
+            probs = t.masked_prob()
+            values = _pass_values(pa.specs, t)
+            cf_operands = _cf_operands(
+                pa, exact_names, slabs, probs[:real * sched.chunk_rows],
+                values, ids[:real * sched.chunk_rows], real) if real else {}
+            mirrored = model_size > 1 and _mirrored(
+                pa, exact_names, slabs, probs[:sched.chunk_rows], values)
             out_states = []
             for si, (lo, cnt) in enumerate(slabs):
-                _, vals_i = _slab_udas(pa, si, lo, cnt, values)
-                out_states.append(uda.accumulate_chunk_states(
-                    slab_udas[si], probs, vals_i, cids, max_groups=mg,
-                    num_chunks=real, cf_operands=cf_operands or None))
-            return out_states, ops.group_key_columns(t, kcols, ids, mg), lost
+                udas_i, vals_i = _slab_udas(pa, si, lo, cnt, values,
+                                            model_rank, model_size, mirrored)
+                parts = _chunk_parts(udas_i, probs, vals_i, ids, mg, real,
+                                     lcpw, cf_operands or None)
+                parts = [_gather_model_slabs(udas_i, p, exact_names, cnt,
+                                             max_ax, mg == 1, mirrored)
+                         for p in parts]
+                if ax is not None:
+                    parts = dist.gather_chunk_states(udas_i, parts, ax)
+                out_states.append(parts)
+            gcols = ops.group_key_columns(t, kcols, ids, mg)
+            if ax is not None:
+                gcols = {k: dist.pmax(v, ax) for k, v in gcols.items()}
+            return out_states, gcols, lost
 
         def collect_b(w, out):
             out_states, gcols, lost = out
-            chunk_ids = [w * lcpw + j for j in range(lcpw)]
+            slot_ids = [s * lslots + w * lcpw + j
+                        for s in range(shards) for j in range(lcpw)]
             for acc, parts in zip(accs, out_states):
-                acc.add_wave(chunk_ids, parts)
+                acc.add_wave(slot_ids, parts)
             if lost is not None:
                 lost_waves.append(lost)
             for k, v in gcols.items():
@@ -812,8 +1121,42 @@ def compile_plan(root: Node, mesh=None, *,
                            phys.ShardScan(_STREAMED_RESULT,
                                           phys.Replicated(),
                                           result.capacity))
-        return make_runner({**resident, _STREAMED_RESULT: result}, rb,
-                           params)(outer)
+        canon_caps[_STREAMED_RESULT] = result.capacity
+        return interpret({**resident, _STREAMED_RESULT: result}, outer, rb,
+                         params)
+
+    def lower(tables: Dict[str, Table]):
+        """(physical plan, padded tables) of one call: every base table
+        padded to the canonical chunk grid (a HostTable virtually; on a
+        mesh to the shard capacity, as a view) -- the chunk boundaries
+        define the deterministic fold tree."""
+        def pad(t):
+            if ax is None:
+                return t.pad_to_multiple(chunks)
+            cap = shard_capacity(t.capacity, chunks, shards)
+            if isinstance(t, HostTable):
+                return t.pad_to_multiple(chunks).pad_to(cap)
+            return _PaddedView(t, cap)
+        padded = {k: pad(t) for k, t in tables.items()}
+        canon_caps.clear()
+        canon_caps.update({k: -(-t.capacity // chunks) * chunks
+                           for k, t in tables.items()})
+        plan_tables = dict(padded)
+        for k, st in (stats_tables or {}).items():
+            if k in padded:
+                plan_tables[k] = st
+        proot = phys.lower_plan(
+            root, {k: t.capacity for k, t in padded.items()},
+            n_shards=shards, sharded=ax is not None,
+            join_gather_budget=join_gather_budget,
+            shuffle_slack=shuffle_slack, copartition=copartition,
+            agg_shuffle_budget=agg_shuffle_budget, canonical_chunks=chunks,
+            model=cost_model, tables=plan_tables,
+            device_row_budget=device_row_budget,
+            stream_wave_chunks=stream_wave_chunks,
+            stream_prune_columns=stream_prune_columns,
+            bucket_floor=shuffle_bucket_floor, model_shards=model_size)
+        return proot, padded
 
     def compiled(tables: Dict[str, Table], params: dict | None = None):
         env = dict(params or {})
@@ -824,30 +1167,37 @@ def compile_plan(root: Node, mesh=None, *,
                 f"plan parameters mismatch: missing {sorted(missing)}, "
                 f"unexpected {sorted(extra)} (plan needs "
                 f"{sorted(needed_params)})")
-        # Every base table is padded to the canonical chunk grid (a
-        # HostTable virtually): the chunk boundaries define the
-        # deterministic fold tree.
-        padded = {k: t.pad_to_multiple(chunks) for k, t in tables.items()}
-        caps = {k: t.capacity for k, t in padded.items()}
-        proot = phys.lower_plan(root, caps, n_shards=1, sharded=False,
-                                canonical_chunks=chunks, tables=padded,
-                                device_row_budget=device_row_budget,
-                                stream_wave_chunks=stream_wave_chunks,
-                                stream_prune_columns=stream_prune_columns)
+        proot, padded = lower(tables)
         rb = ReportBuilder() if with_report else None
-        if any(isinstance(n, phys.StreamedScan) for n in _iter_phys(proot)):
-            out = _streamed_exec(proot, padded, _target(device), rb, env)
+        scanned = {n.name: n for n in _iter_phys(proot)
+                   if isinstance(n, (phys.ShardScan, phys.StreamedScan))}
+        streamed = any(isinstance(n, phys.StreamedScan)
+                       for n in scanned.values())
+        dev = mesh.device if mesh is not None else None
+        if mesh is None and not streamed and not any(
+                isinstance(t, HostTable) for t in padded.values()):
+            resident = padded       # device Tables run where they live
         else:
-            if any(isinstance(t, HostTable) for t in padded.values()):
-                dev = _target(device)
-                padded = {n.name: _on_device(padded[n.name], dev)
-                          for n in _iter_phys(proot)
-                          if isinstance(n, phys.ShardScan)}
-            out = make_runner(padded, rb, env)(proot)
-        if isinstance(out, Table):
-            out = out.with_part(phys.Replicated())
+            dev = dev or _target(device)
+            resident = {}
+            for name, node in scanned.items():
+                if not isinstance(node, phys.ShardScan):
+                    continue
+                if ax is None:
+                    resident[name] = _on_device(padded[name], dev)
+                else:               # this rank's block
+                    rows = padded[name].capacity // shards
+                    resident[name] = _block(tables[name], rank * rows, rows,
+                                            dev)
+        if streamed:
+            out = _streamed_exec(proot, resident, tables, dev, rb, env)
+            if isinstance(out, Table):
+                out = out.with_part(phys.Replicated())
+        else:
+            out = interpret(resident, proot, rb, env)
         return (out, rb.build()) if with_report else out
 
+    compiled.explain = lambda tables: phys.explain(lower(tables)[0])
     return compiled
 
 
@@ -916,16 +1266,19 @@ def run_plan(root: Node, tables: Dict[str, Table], mesh=None, *,
     escalated parameters until the run is clean (or ``policy.
     max_attempts`` is spent: :class:`RetryExhausted`).  Escalations:
 
+    * exchange overflow (a mesh compile whose ``stats_tables`` sized a
+      bucket below the real demand) -> ``shuffle_bucket_floor`` = the
+      observed peak per-(sender, owner) send demand, which makes the
+      retry overflow-free, and ``shuffle_slack`` doubled (capped at the
+      data-rank count, where no bucket can overflow);
     * truncation tail mass above ``policy.tail_tol`` -> kappa doubled;
     * group-code-table overflow -> max_groups doubled;
     * a transfer fault surviving the in-loop wave retries -> wave size
       halved (``stream_wave_chunks``).
 
-    The reference's fourth escalation, exchange overflow (bucket floor
-    and slack), needs an exchange: no single-device compile has one, so
-    it arrives with the multi-rank slice.  NaN counts mean the NaN came in
-    with the data: nothing to escalate, and the result returns with the
-    report flagging it.
+    NaN counts without an exchange overflow mean the NaN came in with the
+    data: nothing to escalate, and the result returns with the report
+    flagging it.
 
     Returns ``(result, report)``; ``report.final_params`` records the
     final attempt's overrides and ``report.waves["attempts"]`` the attempt
@@ -937,12 +1290,20 @@ def run_plan(root: Node, tables: Dict[str, Table], mesh=None, *,
     policy = policy or RetryPolicy()
     compiler = compiler or _default_compiler
     opts = dict(opts)
+    slack = float(opts.pop("shuffle_slack", 4.0))
+    floor = opts.pop("shuffle_bucket_floor", None)
     wave_chunks = opts.pop("stream_wave_chunks", None)
+    n_shards = 1
+    if mesh is not None:
+        for a in dist._data_axes(mesh, opts.get("data_axes", ("data",))):
+            n_shards *= mesh.shape[a]
     out = report = None
     attempt = 0
     for attempt in range(1, policy.max_attempts + 1):
         fn = compiler(_scale_plan(root, kappa_scale, groups_scale), mesh,
-                      with_report=True, stream_wave_chunks=wave_chunks,
+                      with_report=True, shuffle_slack=slack,
+                      shuffle_bucket_floor=floor,
+                      stream_wave_chunks=wave_chunks,
                       stream_wave_retries=policy.wave_retries, **opts)
         try:
             out, report = fn(tables, params)
@@ -959,16 +1320,18 @@ def run_plan(root: Node, tables: Dict[str, Table], mesh=None, *,
             raise RetryExhausted(
                 f"unresolved after {attempt} attempts: "
                 f"{report.describe(policy.tail_tol)}", report)
+        if "overflow" in issues:
+            demand = report.host_values()["exchange_demand"]
+            floor = max(floor or 0,
+                        max(demand[k] for k in issues["overflow"]))
+            slack = C.escalated_slack(slack, n_shards)
         if "tail" in issues:
             kappa_scale *= 2
         if "group_overflow" in issues:
             groups_scale *= 2
 
-    # A single-device compile lowers no exchange, so the exchange ladder's
-    # parameters stay where the reference starts them (slack 4.0, no
-    # floor), as the reference's own single-device runs report.
     report.final_params.update(
-        shuffle_slack=4.0, shuffle_bucket_floor=None,
+        shuffle_slack=slack, shuffle_bucket_floor=floor,
         stream_wave_chunks=wave_chunks, kappa_scale=kappa_scale,
         groups_scale=groups_scale)
     report.waves["attempts"] = attempt

@@ -11,9 +11,9 @@ diagnose a run instead of squinting at NaNs:
     exchange_demand     per exchange leg: the observed peak per-(sender,
                         owner) send demand
     exchange_capacity   per exchange leg: the static bucket capacity
-                        (the three exchange fields stay empty until the
-                        multi-rank slice of the port, which has exchanges
-                        and records them)
+                        (the three exchange fields fill on mesh compiles,
+                        whose exchanges record them, the same on every
+                        rank)
     group_overflow      per aggregation pass: live rows whose group code
                         was dropped past ``max_groups``
     tail_mass           per MIN/MAX aggregate: the per-group §V-B.2
@@ -158,6 +158,22 @@ class ReportBuilder:
         self._counters[kind] = i + 1
         return f"{kind}[{i}]"
 
+    # ------------------------------------------------------- exchanges
+    def begin_exchange(self, kind: str) -> str:
+        """Label one exchange operator (shuffle_join / copart_join /
+        repartition); its legs record under ``label.leg``."""
+        return self._next(kind)
+
+    def exchange_leg(self, label: str, leg: str, overflow, demand,
+                     capacity: int) -> None:
+        key = f"{label}.{leg}"
+        self._report.exchange_overflow[key] = torch.as_tensor(
+            overflow).to(torch.int32)
+        self._report.exchange_demand[key] = torch.as_tensor(
+            demand).to(torch.int32)
+        self._report.exchange_capacity[key] = torch.as_tensor(
+            capacity, dtype=torch.int32)
+
     # ---------------------------------------------- aggregation passes
     def begin_agg(self, kind: str) -> str:
         return self._next(f"agg:{kind}")
@@ -181,9 +197,8 @@ class ReportBuilder:
     # ------------------------------------------------- forked collection
     def fork(self) -> "ReportBuilder":
         """A child builder whose label counters CONTINUE from this one,
-        for a plan part collected apart (the reference's plan suffix under
-        its own shard_map; the multi-rank slice's ranks); :meth:`absorb`
-        merges its report back."""
+        for a plan part collected apart; :meth:`absorb` merges its report
+        back."""
         child = ReportBuilder()
         child._counters = dict(self._counters)
         return child

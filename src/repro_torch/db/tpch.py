@@ -276,14 +276,14 @@ def _masked(t: Table, col: str):
     return torch.where(t.valid, t[col], torch.zeros_like(t[col]))
 
 
-def _confidence_of(plan, db: TPCH, opts=None):
+def _confidence_of(plan, db: TPCH, mesh=None, opts=None):
     """P(result non-empty): one-group AtLeastOne over the plan's output."""
     agg = GroupAgg(plan, keys=(), value="", agg="COUNT", max_groups=1)
-    out = compile_plan(agg, **(opts or {}))(db.tables())
+    out = compile_plan(agg, mesh, **(opts or {}))(db.tables())
     return dict(confidence=out["confidence"][0])
 
 
-def q1(db: TPCH, mode: str = "aggregate", plan_opts=None):
+def q1(db: TPCH, mode: str = "aggregate", mesh=None, plan_opts=None):
     """Pricing summary: GROUP BY (returnflag, linestatus); SUM(quantity),
     SUM(extendedprice), COUNT(*) over shipped lineitems.  ``plan_opts``
     (every query): extra ``compile_plan`` keywords."""
@@ -298,18 +298,18 @@ def q1(db: TPCH, mode: str = "aggregate", plan_opts=None):
                                           ids, 8),
                     count=segment_sum(li.valid.to(torch.int32), ids, 8))
     if mode == "confidence":
-        return _confidence_of(sel, db, plan_opts)
+        return _confidence_of(sel, db, mesh, plan_opts)
     if mode == "group_confidence":
-        out = compile_plan(GroupAgg(sel, keys, "", "COUNT", 8),
+        out = compile_plan(GroupAgg(sel, keys, "", "COUNT", 8), mesh,
                            **(plan_opts or {}))(db.tables())
         return dict(valid=out["valid"], confidence=out["confidence"])
-    out = compile_plan(q1_plan(), **(plan_opts or {}))(db.tables())
+    out = compile_plan(q1_plan(), mesh, **(plan_opts or {}))(db.tables())
     return dict(valid=out["valid"], qty=out["sum"], price=out["price"],
                 count=out["count"], cumulants_qty=out["cumulants_qty"])
 
 
 def q3(db: TPCH, mode: str = "aggregate", segment: int = 1,
-       max_groups: int = 512, plan_opts=None,
+       max_groups: int = 512, mesh=None, plan_opts=None,
        order_join_budget: int | None = None):
     """Shipping priority: revenue per order for one market segment."""
     j = _q3_join(segment, order_join_budget)
@@ -320,20 +320,20 @@ def q3(db: TPCH, mode: str = "aggregate", segment: int = 1,
                     revenue=segment_sum(_masked(jt, "l_extendedprice"),
                                         ids, max_groups))
     if mode == "confidence":
-        return _confidence_of(j, db, plan_opts)
+        return _confidence_of(j, db, mesh, plan_opts)
     if mode == "group_confidence":
         out = compile_plan(GroupAgg(j, ("l_orderkey",), "", "COUNT",
-                                    max_groups),
+                                    max_groups), mesh,
                            **(plan_opts or {}))(db.tables())
         return dict(valid=out["valid"], confidence=out["confidence"])
     plan = q3_plan(segment, max_groups, order_join_budget)
-    out = compile_plan(plan, **(plan_opts or {}))(db.tables())
+    out = compile_plan(plan, mesh, **(plan_opts or {}))(db.tables())
     return dict(valid=out["valid"], revenue=out["sum"],
                 cumulants=out["cumulants"])
 
 
 def q6(db: TPCH, mode: str = "aggregate", num_freq: int | None = None,
-       plan_opts=None):
+       mesh=None, plan_opts=None):
     """Forecast revenue change: scalar SUM over filtered lineitem;
     ``num_freq`` adds the exact distribution (the Figure 9 shape)."""
     sel = _q6_select()
@@ -343,8 +343,8 @@ def q6(db: TPCH, mode: str = "aggregate", num_freq: int | None = None,
                           torch.zeros_like(li["l_quantity"]))
         return dict(revenue=torch.sum(rev))
     if mode in ("confidence", "group_confidence"):
-        return _confidence_of(sel, db, plan_opts)
-    r = compile_plan(q6_plan(num_freq), **(plan_opts or {}))(db.tables())
+        return _confidence_of(sel, db, mesh, plan_opts)
+    r = compile_plan(q6_plan(num_freq), mesh, **(plan_opts or {}))(db.tables())
     mu, var = r["sum"]
     out = dict(normal=(mu[0], var[0]), cumulants=r["cumulants"][0])
     if num_freq:
@@ -353,7 +353,7 @@ def q6(db: TPCH, mode: str = "aggregate", num_freq: int | None = None,
 
 
 def q18(db: TPCH, mode: str = "aggregate", qty_threshold: int = 150,
-        max_groups: int = 2048, method: str = "normal",
+        max_groups: int = 2048, mesh=None, method: str = "normal",
         num_freq: int = 256, plan_opts=None):
     """Large-volume customers: orders whose SUM(l_quantity) > threshold,
     kept with p = p_order * P(SUM > threshold).  ``method="exact"``
@@ -367,28 +367,28 @@ def q18(db: TPCH, mode: str = "aggregate", qty_threshold: int = 150,
         return dict(valid=gvalid & (qty > qty_threshold), sum_qty=qty)
     rew = q18_plan(qty_threshold, max_groups)
     if mode == "confidence":
-        return _confidence_of(rew, db, plan_opts)
+        return _confidence_of(rew, db, mesh, plan_opts)
     if mode == "group_confidence":
-        t = compile_plan(rew, **(plan_opts or {}))(db.tables())
+        t = compile_plan(rew, mesh, **(plan_opts or {}))(db.tables())
         return dict(valid=t.valid, confidence=t.prob)
     if method == "exact":
         plan = GroupAgg(li, ("l_orderkey",), "l_quantity", "SUM", max_groups,
                         "exact", num_freq=num_freq)
-        out = compile_plan(plan, **(plan_opts or {}))(db.tables())
+        out = compile_plan(plan, mesh, **(plan_opts or {}))(db.tables())
         coeffs = out["exact"]                        # (G, num_freq) rows
         gt = torch.arange(num_freq, device=coeffs.device) > qty_threshold
         p_gt = torch.sum(coeffs * gt[None, :], dim=-1)
         return dict(valid=out["valid"], sum_dist=coeffs, p_qualifies=p_gt)
     plan = GroupAgg(li, ("l_orderkey",), "l_quantity", "SUM", max_groups,
                     "normal")
-    out = compile_plan(plan, **(plan_opts or {}))(db.tables())
+    out = compile_plan(plan, mesh, **(plan_opts or {}))(db.tables())
     mu, var = out["sum"]
     p_gt = ops.normal_greater(mu, var, torch.as_tensor(
         qty_threshold, dtype=mu.dtype, device=mu.device))
     return dict(valid=out["valid"], sum_qty=(mu, var), p_qualifies=p_gt)
 
 
-def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8,
+def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8, mesh=None,
              plan_opts=None):
     """Top-k variant of Q18: the per-order MAX(l_quantity) distribution
     with the paper's §V-B.2 truncation bound exposed per group.
@@ -405,7 +405,7 @@ def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8,
     ``operators.minmax_runs``) plus the per-group ``p_empty``, ``p_tail``
     (P(no kept value present)) and ``tail_mass``.
     """
-    out = compile_plan(q18_topk_plan(max_groups, kappa),
+    out = compile_plan(q18_topk_plan(max_groups, kappa), mesh,
                        **(plan_opts or {}))(db.tables())
     mm = out["minmax"]
     return dict(valid=out["valid"], keys=out["keys"],
@@ -416,17 +416,18 @@ def q18_topk(db: TPCH, max_groups: int = 2048, kappa: int = 8,
 
 
 def q20(db: TPCH, mode: str = "aggregate", nation_name: int = 3,
-        max_groups: int = 1024, avail_frac: float = 0.05, plan_opts=None):
+        max_groups: int = 1024, avail_frac: float = 0.05, mesh=None,
+        plan_opts=None):
     """The paper's Fig. 6 plan: suppliers in one nation with excess stock
     of 'forest' parts (project(s_name) of R7 |x| R9)."""
     r10 = _q20_r10(nation_name, max_groups, avail_frac)
     if mode == "deterministic":
-        t = compile_plan(r10, **(plan_opts or {}))(db.tables())
+        t = compile_plan(r10, mesh, **(plan_opts or {}))(db.tables())
         return dict(valid=t.valid & (t.prob > 0.5), s_name=t["s_name"])
     proj = Project(r10, ("s_name",), 64)
     if mode == "confidence":
-        return _confidence_of(proj, db, plan_opts)
-    result = compile_plan(proj, **(plan_opts or {}))(db.tables())
+        return _confidence_of(proj, db, mesh, plan_opts)
+    result = compile_plan(proj, mesh, **(plan_opts or {}))(db.tables())
     if mode == "group_confidence":
         return dict(valid=result.valid, s_name=result["s_name"],
                     confidence=result.prob)

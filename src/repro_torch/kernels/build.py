@@ -30,8 +30,8 @@ P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 #: returns cudaGetLastError().
 SIGNATURES = {
     # p, a, a2, twiddles, partial_la, partial_an, la, an, n, num_freq,
-    # shift, magic, smem_table, splits, stream
-    "logcf_launch": [P, P, P, P, P, P, P, P, I, I, I, U, I, I, P],
+    # shift, magic, smem_table, splits, freq_lo, freq_cnt, stream
+    "logcf_launch": [P, P, P, P, P, P, P, P, I, I, I, U, I, I, I, I, P],
     # p, a, a2, bounds, piece_first, piece_start, piece_end, twiddles,
     # partial_la, partial_an, la, an, n_pieces, num_groups, num_freq,
     # shift, magic, short_max, freq_lo, freq_cnt, stream

@@ -26,28 +26,33 @@
 //    the resident blocks in turn.  Each item writes a partial row;
 //    cf_mirror_sum adds the rows in order for both outputs in one launch.
 //    No atomics: the same bits on every run.
+//  - A window: freq_cnt frequencies from freq_lo inside [0, N/2] (a model
+//    rank's share of a scalar pass) run the same partial rows and sums,
+//    so each frequency has the bits of the whole launch; the window is
+//    written as it is, and the caller mirrors the gathered half.
 #include "cf.cuh"
 
 namespace {
 
-// la[k], an[k] = the in-order sums of the partial rows (la halved), and
-// their mirrors la[N - k] = la[k], an[N - k] = -an[k], for k < K.
+// la[f], an[f] = the in-order sums of the partial rows (la halved) at
+// frequency freq_lo + f, for f < cnt; with `mirror` (the whole half,
+// freq_lo = 0) also la[N - k] = la[k] and an[N - k] = -an[k].
 __global__ void cf_mirror_sum(const float* __restrict__ part_lg,
                               const float* __restrict__ part_an,
                               float* __restrict__ la, float* __restrict__ an,
-                              int rows, int K, int N) {
+                              int rows, int cnt, int N, int mirror) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  if (k >= cnt) return;
   float lg = 0.0f, a = 0.0f;
   for (int r = 0; r < rows; ++r) {
-    lg += part_lg[static_cast<long long>(r) * K + k];
-    a += part_an[static_cast<long long>(r) * K + k];
+    lg += part_lg[static_cast<long long>(r) * cnt + k];
+    a += part_an[static_cast<long long>(r) * cnt + k];
   }
   lg *= 0.5f;
   la[k] = lg;
   an[k] = a;
   const int m = N - k;
-  if (k > 0 && m != k) {
+  if (mirror && k > 0 && m != k) {
     la[m] = lg;
     an[m] = -a;
   }
@@ -60,16 +65,19 @@ extern "C" int logcf_launch(const float* p, const int* a, const int* a2,
                             float* part_la, float* part_an, float* la,
                             float* an, int n, int num_freq, int shift,
                             unsigned magic, int smem_table, int splits,
-                            void* stream) {
+                            int freq_lo, int freq_cnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int K = num_freq / 2 + 1;
+  if (freq_lo < 0 || freq_cnt < 1 || freq_lo + freq_cnt > K)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int split_len = (n + splits - 1) / splits;
   float2* tab = reinterpret_cast<float2*>(twiddles);
   launch_cf_twiddles(tab, num_freq, s);
   launch_cf_partial(p, a, a2, tab, nullptr, nullptr, splits, split_len, n,
-                    part_la, part_an, 0, K, num_freq, magic, shift,
-                    smem_table != 0, s);
-  cf_mirror_sum<<<(K + 255) / 256, 256, 0, s>>>(part_la, part_an, la, an,
-                                                splits, K, num_freq);
+                    part_la, part_an, freq_lo, freq_cnt, num_freq, magic,
+                    shift, smem_table != 0, s);
+  cf_mirror_sum<<<(freq_cnt + 255) / 256, 256, 0, s>>>(
+      part_la, part_an, la, an, splits, freq_cnt, num_freq,
+      freq_lo == 0 && freq_cnt == K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ through the split-modmult: k = k_hi*2^S + k_lo and a2 = (a << S) mod N,
 so k_hi*a2 + k_lo*a < 2^32 for N <= 2^20, and one Barrett step with
 :func:`barrett_magic` reduces it mod N on the card (``csrc/cf.cuh``).
 The kernel computes k <= N/2 only and mirrors the rest (conjugate
-symmetry: log_abs[N-k] = log_abs[k], angle[N-k] = -angle[k]).
+symmetry: log_abs[N-k] = log_abs[k], angle[N-k] = -angle[k]), and so does
+the plain version.  A window of those N/2 + 1 frequencies (a model rank's
+share) gives each frequency the bits of the whole call; :func:`mirror`
+completes the gathered half.
 """
 from __future__ import annotations
 
@@ -66,9 +69,33 @@ def split_modmult_operands(values, num_freq: int):
     return a, a2.to(torch.int32).contiguous(), shift
 
 
-def logcf_plain(probs, values, num_freq: int):
-    """The plain PyTorch version: one (N, n) tile and one sum."""
-    return ref.logcf_ref(probs, values, num_freq)
+def mirror(la, an, num_freq: int):
+    """The N-point grid (last axis) from its N/2 + 1 columns k <= N/2:
+    la[N-k] = la[k] and an[N-k] = -an[k]."""
+    tail = slice(1, num_freq - la.shape[-1] + 1)
+    return (torch.cat([la, la[..., tail].flip(-1)], -1),
+            torch.cat([an, -an[..., tail].flip(-1)], -1))
+
+
+def _window(num_freq: int, freq_lo: int, freq_cnt: int | None) -> tuple:
+    """(lo, cnt, whole) of a window of the k <= N/2 frequencies; None is
+    all of them, mirrored to the N-point grid."""
+    half = num_freq // 2 + 1
+    if freq_cnt is None:
+        return 0, half, True
+    if freq_lo < 0 or freq_cnt < 1 or freq_lo + freq_cnt > half:
+        raise ValueError(f"logcf window [{freq_lo}, {freq_lo + freq_cnt}) "
+                         f"is not inside [0, {half})")
+    return freq_lo, freq_cnt, False
+
+
+def logcf_plain(probs, values, num_freq: int, freq_lo: int = 0,
+                freq_cnt: int | None = None):
+    """The plain PyTorch version: one (K, n) tile over the kernel's
+    frequencies and one sum, mirrored as the kernel mirrors."""
+    lo, cnt, whole = _window(num_freq, freq_lo, freq_cnt)
+    la, an = ref.logcf_ref(probs, values, num_freq, lo, cnt)
+    return mirror(la, an, num_freq) if whole else (la, an)
 
 
 def splits_for(n: int, num_freq: int) -> int:
@@ -79,29 +106,33 @@ def splits_for(n: int, num_freq: int) -> int:
     return max(1, min(-(-n // MIN_SPLIT), -(-TARGET_ITEMS // fblocks)))
 
 
-def logcf(probs, values, *, num_freq: int):
+def logcf(probs, values, *, num_freq: int, freq_lo: int = 0,
+          freq_cnt: int | None = None):
     """Summed log CF at ``num_freq`` frequencies: (log_abs, angle), each
-    (num_freq,).  A CUDA tensor launches ``csrc/logcf.cu``; a CPU tensor
-    computes :func:`logcf_plain`."""
+    (num_freq,); with ``freq_cnt`` only the window [freq_lo, freq_lo +
+    freq_cnt) of the k <= N/2 frequencies, each (freq_cnt,), unmirrored.
+    A CUDA tensor launches ``csrc/logcf.cu``; a CPU tensor computes
+    :func:`logcf_plain`."""
     if probs.device.type == "cpu":
-        return logcf_plain(probs, values, num_freq)
+        return logcf_plain(probs, values, num_freq, freq_lo, freq_cnt)
+    lo, cnt, whole = _window(num_freq, freq_lo, freq_cnt)
     n = probs.shape[0]
     build.check_operand("logcf probs", probs, torch.float32)
     a, a2, shift = split_modmult_operands(values, num_freq)
     build.check_operand("logcf values", a, torch.int32, n)
     splits = splits_for(n, num_freq)
     dev = probs.device
-    half = num_freq // 2 + 1
     # one allocation: the twiddle table (N float2), then the partial rows
-    buf = torch.empty((2 * num_freq + 2 * splits * half,),
+    buf = torch.empty((2 * num_freq + 2 * splits * cnt,),
                       dtype=torch.float32, device=dev)
-    part = buf[2 * num_freq:].view(2, splits, half)
-    out = torch.empty((2, num_freq), dtype=torch.float32, device=dev)
+    part = buf[2 * num_freq:].view(2, splits, cnt)
+    out = torch.empty((2, num_freq if whole else cnt), dtype=torch.float32,
+                      device=dev)
     build.launch("logcf_launch", probs.data_ptr(), a.data_ptr(),
                  a2.data_ptr(), buf.data_ptr(), part[0].data_ptr(),
                  part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n,
                  num_freq, shift, barrett_magic(num_freq),
-                 int(num_freq <= DIRECT_TABLE_MAX), splits,
+                 int(num_freq <= DIRECT_TABLE_MAX), splits, lo, cnt,
                  build.stream_handle(dev))
     logcf.launches += 1
     return out[0], out[1]

@@ -44,11 +44,14 @@ def _cf_terms(probs, values, k, num_freq):
     return la, torch.atan2(im, re)
 
 
-def logcf_ref(probs, values, num_freq: int):
-    """Summed log characteristic function of sum_i a_i * Bernoulli(p_i):
-    (log_abs, angle), each (num_freq,).  The angle is the sum of per-factor
-    principal arguments (branch offsets cancel at exp() time)."""
-    k = torch.arange(num_freq, dtype=torch.float64, device=probs.device)
+def logcf_ref(probs, values, num_freq: int, freq_lo: int = 0,
+              freq_cnt: int | None = None):
+    """Summed log characteristic function of sum_i a_i * Bernoulli(p_i) at
+    frequencies [freq_lo, freq_lo + freq_cnt) (default all num_freq):
+    (log_abs, angle).  The angle is the sum of per-factor principal
+    arguments (branch offsets cancel at exp() time)."""
+    f = num_freq - freq_lo if freq_cnt is None else freq_cnt
+    k = freq_lo + torch.arange(f, dtype=torch.float64, device=probs.device)
     la, an = _cf_terms(probs[None, :], values[None, :], k[:, None], num_freq)
     return la.sum(-1), an.sum(-1)
 

@@ -1,13 +1,12 @@
 """Deterministic fault injection for the execution engine (port of
 ``repro.testing.faults``).
 
-The streamed executor (``db/plans.py``, its wave loop ``_stream``) calls
-the module-level hook below before every host->device slab copy:
+The executor calls the module-level hooks below:
 
     on_transfer(wave, rows)   before every host->device wave transfer
-    on_exchange()             at every shuffle exchange: kept for the
-                              multi-rank slice of the port, which has the
-                              exchange; nothing calls it yet
+                              (the streamed wave loop ``plans._stream``)
+    on_exchange()             at every shuffle exchange
+                              (``db.distributed.shuffle_by_key``)
 
 With no plan installed both hooks are no-ops (one attribute read).  Tests
 install a :class:`FaultPlan` with :func:`inject` to fail chosen

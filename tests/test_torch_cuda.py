@@ -166,6 +166,21 @@ def test_cuda_kernels_match_plain(cuda_device):
         want = pb_cf.logcf_plain(p[:300], vv[:300], num_freq)
         torch.testing.assert_close(got[0], want[0], atol=2e-3, rtol=0)
         assert _angle_err(got[1], want[1]) < 2e-3
+    # windows of the k <= N/2 columns (a model rank's share): the whole
+    # launch's bits, mirrored back; and against the plain window
+    # (the plain comparison on 300 tuples, as above)
+    for m, num_freq in ((n, 257), (n, 256), (300, 257)):
+        whole = pb_cf.logcf(p[:m], v[:m], num_freq=num_freq)
+        half = num_freq // 2 + 1
+        parts = [pb_cf.logcf(p[:m], v[:m], num_freq=num_freq, freq_lo=lo,
+                             freq_cnt=c)
+                 for lo, c in ((0, 50), (50, half - 50))]
+        got = pb_cf.mirror(torch.cat([x[0] for x in parts]),
+                           torch.cat([x[1] for x in parts]), num_freq)
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    want = pb_cf.logcf_plain(p[:m], v[:m], num_freq, 50, half - 50)
+    torch.testing.assert_close(parts[1][0], want[0], atol=2e-3, rtol=0)
+    assert _angle_err(parts[1][1], want[1]) < 2e-3
     got = group_cf.group_logcf(p, v, g, num_groups=40, num_freq=256,
                                freq_lo=100, freq_cnt=90)
     want = group_cf.group_logcf_plain(p, v, g, 40, 256, 100, 90)

@@ -35,4 +35,5 @@ def test_guard_sees_the_whole_package():
     names = {p.name for p in FILES}
     assert {"uda.py", "plans.py", "physical.py", "tpch.py", "pb_cf.py",
             "group_cf.py", "pgf.py", "poisson_binomial.py", "polymul.py",
-            "report.py", "faults.py", "chip_smoke.py"} <= names
+            "report.py", "faults.py", "chip_smoke.py", "distributed.py",
+            "mesh.py", "ranks.py"} <= names

@@ -354,14 +354,6 @@ def test_streamed_requires_aggregation(db):
     assert "to_table" in str(ei.value)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(stats_tables={}),
-                                dict(shuffle_slack=4.0),
-                                dict(shuffle_bucket_floor=8)])
-def test_mesh_keywords_wait_for_multi_rank(kw):
-    with pytest.raises(NotImplementedError, match="multi-rank slice"):
-        compile_plan(tpch.q1_plan(), **kw)
-
-
 def test_streamed_default_device_is_the_card(db):
     """A streamed compile left at its default device ships to the card:
     on a host with none it raises instead of falling back to the CPU."""
