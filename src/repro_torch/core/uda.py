@@ -696,6 +696,12 @@ def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
     return states
 
 
+def merge(udas, a, b):
+    """Merge two state dicts UDA-wise (any merge tree gives the same
+    result up to rounding; :func:`tree_fold` fixes the tree)."""
+    return {name: u.merge(a[name], b[name]) for name, u in udas.items()}
+
+
 def tree_fold(u: UDA, parts):
     """Fold partial states with ``u.merge`` in the one canonical tree
     shape: a balanced pairwise tree over the largest power-of-two prefix,

@@ -171,6 +171,27 @@ def fk_join(left: Table, right: Table, left_key: str, right_key: str,
     return Table(cols, prob, valid, left.part)
 
 
+def general_join(left: Table, right: Table,
+                 cond: Callable[[Table, Table, torch.Tensor, torch.Tensor],
+                                torch.Tensor],
+                 right_cols: Sequence[str], suffix: str = "") -> Table:
+    """Nested-loop theta-join for small relations: capacity |L| x |R|,
+    the pair (i, j) at row i * |R| + j; p = p_l * p_r (Table I row IV).
+
+    ``cond(left, right, i_idx, j_idx)`` -> bool over the flattened pair
+    grid (int64 indices); pairs that fail it, or have an invalid side,
+    are invalid rows."""
+    nl, nr = left.capacity, right.capacity
+    ii = torch.arange(nl, device=left.device).repeat_interleave(nr)
+    jj = torch.arange(nr, device=left.device).repeat(nl)
+    cols = {k: v[ii] for k, v in left.columns.items()}
+    for c in right_cols:
+        cols[c + suffix] = right[c][jj]
+    ok = cond(left, right, ii, jj)
+    prob = left.prob[ii] * right.prob[jj]
+    valid = left.valid[ii] & right.valid[jj] & ok
+    return Table(cols, prob, valid)
+
 
 # ------------------------------------------- shuffle-exchange bucket math
 def bucket_slots(dest, ok, n_shards: int, capacity: int):

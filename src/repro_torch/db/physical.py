@@ -242,6 +242,7 @@ import types
 from typing import Callable
 
 import numpy as np
+import torch
 
 from . import cost as C
 
@@ -424,10 +425,10 @@ def structural_key(obj) -> tuple:
     capturing a different constant produces a different key.  Containers
     recurse; small concrete arrays fingerprint by dtype/shape/bytes.
 
-    Anything unrecognised falls back to ``id()`` — an identity key can
-    only cause a cache MISS, never a false hit, so the fingerprint is
-    safe to key compiled executables on (the serving layer's plan cache
-    and the streamed executor's wave cache both do).
+    Anything unrecognised, and any tensor, falls back to ``id()`` — an
+    identity key can only cause a cache MISS, never a false hit, so long
+    as the keyed object stays alive (the serving layer's plan cache keys
+    on this fingerprint and pins each entry's plan).
     """
     if obj is None or isinstance(obj, (bool, int, float, complex, str,
                                        bytes)):
@@ -465,8 +466,13 @@ def structural_key(obj) -> tuple:
             cells = tuple(vals)
         return ("f", structural_key(obj.__code__), cells,
                 structural_key(obj.__defaults__))
+    if isinstance(obj, (torch.device, torch.dtype)):
+        return ("torch", str(obj))
+    if isinstance(obj, torch.Tensor):
+        # Mutable and possibly on the card: keyed by identity, never by
+        # content (a miss where the reference would hit on equal values).
+        return ("id", "Tensor", id(obj))
     try:
-        import numpy as np
         arr = np.asarray(obj)
         if arr.dtype != object and arr.size <= (1 << 16):
             return ("arr", str(arr.dtype), arr.shape, arr.tobytes())

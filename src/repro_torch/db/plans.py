@@ -4,7 +4,9 @@ executor (resident and streamed) and the retry controller.
 
 ``compile_plan(root)`` lowers the logical DAG with the copied physical
 planner (:func:`repro_torch.db.physical.lower_plan`) and returns a
-function ``tables -> result`` that interprets the physical plan eagerly:
+function ``tables -> result`` that interprets the physical plan eagerly
+(``compiled.bind(tables)`` lowers once and returns a runner that only
+executes):
 every base table is padded to the canonical chunk grid, every aggregation
 pass accumulates one UDA state per canonical chunk and folds them in the
 fixed :func:`repro_torch.core.uda.tree_fold` tree, so a result is the same
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict
 
@@ -174,6 +178,141 @@ def plan_params(root: Node) -> frozenset:
 
     walk(root)
     return frozenset(names)
+
+
+def plan_key(root: Node) -> tuple:
+    """Stable structural cache key of a logical plan: two separately
+    constructed but identical plans (same node structure, same predicate
+    bytecode and captured constants, same static knobs) produce EQUAL
+    keys -- what the serving layer's plan cache keys bindings on.
+    Delegates to :func:`repro_torch.db.physical.structural_key`; unknown
+    objects and tensors degrade to identity keys (a possible miss, never a
+    false hit)."""
+    return ("plan", phys.structural_key(root))
+
+
+def mesh_fingerprint(mesh) -> tuple | None:
+    """Hashable identity of this rank's :class:`~repro_torch.launch.mesh.
+    Mesh` for cache keys: axis names, shape, backend, this rank's
+    coordinates and its device -- what the lowering and the collectives
+    depend on; None for single-device compiles."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.axis_names)
+    return (names, tuple(mesh.shape[a] for a in names), mesh.backend,
+            tuple(mesh.coords[a] for a in names), str(mesh.device))
+
+
+class LRUCache:
+    """Bounded least-recently-used mapping with hit/miss/eviction
+    counters and an ``on_evict`` hook -- the cache primitive behind
+    :class:`repro_torch.db.serving.PlanCache`, whose entries hold bound
+    plans and the device tables they placed, so the population must stay
+    bounded and an evicted entry must be dropped."""
+
+    def __init__(self, capacity: int, on_evict: Callable | None = None):
+        if capacity < 1:
+            raise ValueError(f"LRUCache capacity must be >= 1, got "
+                             f"{capacity}")
+        self.capacity = capacity
+        self.on_evict = on_evict
+        self._data: OrderedDict = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __contains__(self, key) -> bool:
+        return key in self._data
+
+    def get(self, key, default=None):
+        if key in self._data:
+            self._data.move_to_end(key)
+            self.hits += 1
+            return self._data[key]
+        self.misses += 1
+        return default
+
+    def put(self, key, value) -> None:
+        if key in self._data:
+            self._data.move_to_end(key)
+        self._data[key] = value
+        self._trim()
+
+    def _trim(self) -> None:
+        while len(self._data) > self.capacity:
+            _, old = self._data.popitem(last=False)
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(old)
+
+    def set_capacity(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError(f"LRUCache capacity must be >= 1, got "
+                             f"{capacity}")
+        self.capacity = capacity
+        self._trim()
+
+    def clear(self) -> None:
+        """Evict everything (the on_evict hook runs for each entry)."""
+        while self._data:
+            _, old = self._data.popitem(last=False)
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(old)
+
+    def values(self) -> list:
+        """The cached values, least recently used first (no counters
+        move)."""
+        return list(self._data.values())
+
+    def info(self) -> dict:
+        return dict(size=len(self._data), capacity=self.capacity,
+                    hits=self.hits, misses=self.misses,
+                    evictions=self.evictions)
+
+
+class Placement:
+    """Device copies of base tables, made once and shared by every
+    binding given this object (``compiled.bind(tables, placement)``; the
+    serving layer gives one to all plans of a catalogue): a device table
+    padded to the chunk grid, a HostTable materialised on the device, a
+    device table pulled to the host for streaming, or a mesh rank's row
+    block.  A copy is keyed by table name, window and device and serves
+    only the table object it was made from.  It is held WEAKLY: the
+    runners that use it keep it alive, so it dies with the last binding
+    that references it (an evicted or re-bound entry frees its copies)."""
+
+    def __init__(self):
+        self._copies: dict = {}
+
+    def copies(self) -> list:
+        """The copies some live binding still holds."""
+        live = [(src(), out()) for src, out in self._copies.values()]
+        return [out for src, out in live
+                if src is not None and out is not None]
+
+    def __len__(self) -> int:
+        return len(self.copies())
+
+    def get(self, name: str, source, window: tuple, dev, make: Callable):
+        key = (name, window, str(dev))
+        held = self._copies.get(key)
+        if held is not None and held[0]() is source:
+            out = held[1]()
+            if out is not None:
+                return out
+        for k in [k for k, (src, out) in self._copies.items()
+                  if src() is None or out() is None]:
+            del self._copies[k]
+        out = make()
+        self._copies[key] = (weakref.ref(source), weakref.ref(out))
+        return out
+
+    def clear(self) -> None:
+        self._copies.clear()
 
 
 def _agg_uda(agg: str, method: str, kappa: int, num_freq: int = 0,
@@ -536,6 +675,22 @@ def _block(t, start: int, rows: int, dev: torch.device) -> Table:
     return _on_device(cut.pad_to(rows), dev)
 
 
+def _canonical_rows(pnode, caps: dict) -> int:
+    """Output rows of a relational subtree under mesh=None padding (row
+    capacity follows the probe / left lineage to its scan); ``caps`` holds
+    the canonical (chunk-grid only) capacities of the base tables."""
+    if isinstance(pnode, (phys.ShardScan, phys.StreamedScan)):
+        return caps[pnode.name]
+    if isinstance(pnode, (phys.PhysSelect, phys.PhysMap, phys.Repartition)):
+        return _canonical_rows(pnode.child, caps)
+    if isinstance(pnode, (phys.GatherJoin, phys.ShuffleJoin,
+                          phys.CoPartitionedJoin)):
+        return _canonical_rows(pnode.left, caps)
+    if isinstance(pnode, phys.MergeAgg):
+        return pnode.child.max_groups
+    raise TypeError(pnode)
+
+
 def _chunk_parts(udas_d, probs, values: dict, ids, mg: int, real: int,
                  nslots: int, cf_operands=None) -> list:
     """Per-chunk-slot states of ``nslots`` equal slots of the columns: the
@@ -576,6 +731,12 @@ def compile_plan(root: Node, mesh=None, *,
     dict of tensors), or ``-> (result, ExecutionReport)`` with
     ``with_report=True``.  ``compiled.explain(tables)`` renders the
     physical plan the call would run (``physical.explain``).
+
+    ``compiled(tables, params)`` is ``compiled.bind(tables)(params)``:
+    ``bind`` lowers the plan for those tables and places them on the
+    device once (the port's counterpart of a trace), and the runner it
+    returns only executes, so calls of one runner skip the lowering, the
+    padding and the copies (:mod:`repro_torch.db.serving` keeps runners).
 
     ``canonical_chunks`` is the fixed accumulation grid of every pass;
     ``cf_budget_elems`` bounds the live exact-CF state elements of a
@@ -669,29 +830,12 @@ def compile_plan(root: Node, mesh=None, *,
                 else HostTable.from_table(st)).pad_to_multiple(chunks)
             .pad_to(shard_capacity(st.capacity, chunks, shards))
             for k, st in stats_tables.items()}
-    # Canonical (chunk-grid only) capacities of the base tables, set by
-    # `lower`: the rows a relational result has under mesh=None.
-    canon_caps: dict = {}
-
-    def _canonical_rows(pnode) -> int:
-        """Output rows of a relational subtree under mesh=None padding
-        (row capacity follows the probe / left lineage to its scan)."""
-        if isinstance(pnode, (phys.ShardScan, phys.StreamedScan)):
-            return canon_caps[pnode.name]
-        if isinstance(pnode, (phys.PhysSelect, phys.PhysMap,
-                              phys.Repartition)):
-            return _canonical_rows(pnode.child)
-        if isinstance(pnode, (phys.GatherJoin, phys.ShuffleJoin,
-                              phys.CoPartitionedJoin)):
-            return _canonical_rows(pnode.left)
-        if isinstance(pnode, phys.MergeAgg):
-            return pnode.child.max_groups
-        raise TypeError(pnode)
-
-    def make_runner(tables: Dict[str, Table], rb: ReportBuilder | None = None,
+    def make_runner(tables: Dict[str, Table], caps: dict,
+                    rb: ReportBuilder | None = None,
                     params: dict | None = None):
         """Bind the physical-plan interpreter to one dict of tables (this
-        rank's blocks on a mesh).  The streamed executor binds the SAME
+        rank's blocks on a mesh) and the canonical capacities ``caps`` of
+        the binding that runs it.  The streamed executor binds the SAME
         interpreter to every wave's slab (the StreamedScan resolves to the
         slab), so resident and streamed execution share one code path
         below the aggregation."""
@@ -740,7 +884,8 @@ def compile_plan(root: Node, mesh=None, *,
                 # chunked accumulate as mesh=None for its own groups.
                 probs, values, acc_ids = dist.chunk_columns(
                     probs, values, ids, t[phys.CHUNK_COL], t[dist.ROW_COL],
-                    t.valid, chunk_size=_canonical_rows(pa.child) // chunks,
+                    t.valid,
+                    chunk_size=_canonical_rows(pa.child, caps) // chunks,
                     num_chunks=chunks, max_groups=mg)
             elif sharded(t):
                 nslots, real = local_chunks, real_local
@@ -821,7 +966,7 @@ def compile_plan(root: Node, mesh=None, *,
                     list(node.right_cols), list(node.carry_cols), ax,
                     n_shards=shards, build_bucket=node.build_bucket,
                     probe_bucket=node.probe_bucket,
-                    chunk_size=_canonical_rows(node.left) // chunks,
+                    chunk_size=_canonical_rows(node.left, caps) // chunks,
                     num_chunks=chunks, report=rb, label=lbl)
             if isinstance(node, phys.Repartition):
                 t = run(node.child)
@@ -829,7 +974,7 @@ def compile_plan(root: Node, mesh=None, *,
                 return dist.repartition_by_key(
                     t, node.key, list(node.carry_cols), ax,
                     n_shards=shards, bucket=node.bucket,
-                    chunk_size=_canonical_rows(node.child) // chunks,
+                    chunk_size=_canonical_rows(node.child, caps) // chunks,
                     num_chunks=chunks, report=rb, label=lbl)
             if isinstance(node, phys.MergeAgg):
                 return run_agg(node)
@@ -837,15 +982,16 @@ def compile_plan(root: Node, mesh=None, *,
 
         return run, sharded
 
-    def interpret(tables: Dict[str, Table], proot, rb=None, params=None):
+    def interpret(tables: Dict[str, Table], proot, caps: dict, rb=None,
+                  params=None):
         """Run a physical plan on one dict of tables; a row-partitioned
         Table result is gathered and cut to its mesh=None capacity."""
-        run, sharded = make_runner(tables, rb, params)
+        run, sharded = make_runner(tables, caps, rb, params)
         out = run(proot)
         if isinstance(out, Table):
             if sharded(out):
                 out = dist.gather_table(out, ax)
-                n = _canonical_rows(proot)
+                n = _canonical_rows(proot, caps)
                 out = Table({k: v[:n] for k, v in out.columns.items()},
                             out.prob[:n], out.valid[:n], out.part)
             out = out.with_part(phys.Replicated())
@@ -973,12 +1119,12 @@ def compile_plan(root: Node, mesh=None, *,
         return n_retries
 
     def _streamed_exec(proot, resident, host, dev: torch.device,
-                       rb: ReportBuilder | None, params: dict):
+                       rb: ReportBuilder | None, params: dict, caps: dict):
         """Run a physical plan containing a StreamedScan: the lowest
         aggregation pass above the scan executes as waves; any plan suffix
         above that pass runs resident on the pass's group-level output.
-        ``resident`` holds this rank's resident tables, ``host`` the base
-        tables as given."""
+        ``resident`` holds this rank's resident tables, ``host`` the
+        streamed base table as a HostTable."""
         scans = [n for n in _iter_phys(proot)
                  if isinstance(n, phys.StreamedScan)]
         if len(scans) > 1:
@@ -996,9 +1142,7 @@ def compile_plan(root: Node, mesh=None, *,
                 "materialise it first via HostTable.to_table()")
         pa = agg.child
         sched = sc.schedule
-        ht = host[sc.name]
-        ht = (ht if isinstance(ht, HostTable)
-              else HostTable.from_table(ht)).pad_to(sched.padded_capacity)
+        ht = host[sc.name].pad_to(sched.padded_capacity)
         if sc.columns is not None:
             # Required-column pruning: slabs carry only the demand set the
             # lowering recorded (plus prob/valid, always).
@@ -1016,7 +1160,7 @@ def compile_plan(root: Node, mesh=None, *,
         lslots = sched.n_waves * lcpw
 
         def spine(slab: Table) -> Table:
-            return make_runner({**resident, sc.name: slab},
+            return make_runner({**resident, sc.name: slab}, caps,
                                params=params)[0](pa.child)
 
         # Phase A: stream once for the global group-code table.  Merging
@@ -1121,26 +1265,32 @@ def compile_plan(root: Node, mesh=None, *,
                            phys.ShardScan(_STREAMED_RESULT,
                                           phys.Replicated(),
                                           result.capacity))
-        canon_caps[_STREAMED_RESULT] = result.capacity
-        return interpret({**resident, _STREAMED_RESULT: result}, outer, rb,
+        return interpret({**resident, _STREAMED_RESULT: result}, outer,
+                         {**caps, _STREAMED_RESULT: result.capacity}, rb,
                          params)
 
-    def lower(tables: Dict[str, Table]):
-        """(physical plan, padded tables) of one call: every base table
-        padded to the canonical chunk grid (a HostTable virtually; on a
-        mesh to the shard capacity, as a view) -- the chunk boundaries
-        define the deterministic fold tree."""
-        def pad(t):
+    def lower(tables: Dict[str, Table], place: Placement | None = None):
+        """(physical plan, padded tables, canonical capacities) of one
+        binding: every base table padded to the canonical chunk grid (a
+        HostTable virtually; on a mesh to the shard capacity, as a view;
+        a device Table by a copy, shared through ``place`` when given)
+        -- the chunk boundaries define the deterministic fold tree -- and
+        the chunk-grid-only capacities (the rows a relational result has
+        under mesh=None)."""
+        def pad(name, t):
             if ax is None:
-                return t.pad_to_multiple(chunks)
+                if (place is None or isinstance(t, HostTable)
+                        or t.capacity % chunks == 0):
+                    return t.pad_to_multiple(chunks)
+                return place.get(name, t, ("grid", chunks), t.device,
+                                 lambda: t.pad_to_multiple(chunks))
             cap = shard_capacity(t.capacity, chunks, shards)
             if isinstance(t, HostTable):
                 return t.pad_to_multiple(chunks).pad_to(cap)
             return _PaddedView(t, cap)
-        padded = {k: pad(t) for k, t in tables.items()}
-        canon_caps.clear()
-        canon_caps.update({k: -(-t.capacity // chunks) * chunks
-                           for k, t in tables.items()})
+        padded = {k: pad(k, t) for k, t in tables.items()}
+        caps = {k: -(-t.capacity // chunks) * chunks
+                for k, t in tables.items()}
         plan_tables = dict(padded)
         for k, st in (stats_tables or {}).items():
             if k in padded:
@@ -1156,9 +1306,9 @@ def compile_plan(root: Node, mesh=None, *,
             stream_wave_chunks=stream_wave_chunks,
             stream_prune_columns=stream_prune_columns,
             bucket_floor=shuffle_bucket_floor, model_shards=model_size)
-        return proot, padded
+        return proot, padded, caps
 
-    def compiled(tables: Dict[str, Table], params: dict | None = None):
+    def check_params(params: dict | None) -> dict:
         env = dict(params or {})
         missing = needed_params - env.keys()
         extra = env.keys() - needed_params
@@ -1167,36 +1317,70 @@ def compile_plan(root: Node, mesh=None, *,
                 f"plan parameters mismatch: missing {sorted(missing)}, "
                 f"unexpected {sorted(extra)} (plan needs "
                 f"{sorted(needed_params)})")
-        proot, padded = lower(tables)
-        rb = ReportBuilder() if with_report else None
+        return env
+
+    def bind(tables: Dict[str, Table], placement: Placement | None = None):
+        """Lower the plan for ``tables`` and place its resident tables on
+        the device, once: returns a runner ``(params=None) -> result``
+        (``(result, report)`` with ``with_report``) that only executes.
+        The lowering reads the tables' sizes and, on a mesh, their key
+        histograms, so a runner is valid only for these table objects.
+        ``placement`` shares the copies (a table padded to the chunk
+        grid, a HostTable materialised, a table pulled to the host for
+        streaming, a mesh rank's block) with other bindings of the same
+        catalogue; the runner holds only the tables its plan scans."""
+        place = placement if placement is not None else Placement()
+        proot, padded, caps = lower(tables, place)
         scanned = {n.name: n for n in _iter_phys(proot)
                    if isinstance(n, (phys.ShardScan, phys.StreamedScan))}
         streamed = any(isinstance(n, phys.StreamedScan)
                        for n in scanned.values())
         dev = mesh.device if mesh is not None else None
+        host: dict = {}
         if mesh is None and not streamed and not any(
                 isinstance(t, HostTable) for t in padded.values()):
-            resident = padded       # device Tables run where they live
+            # device Tables run where they live
+            resident = {name: padded[name] for name in scanned}
         else:
             dev = dev or _target(device)
             resident = {}
             for name, node in scanned.items():
+                src = tables[name]
                 if not isinstance(node, phys.ShardScan):
-                    continue
-                if ax is None:
-                    resident[name] = _on_device(padded[name], dev)
+                    host[name] = src if isinstance(src, HostTable) else \
+                        place.get(name, src, ("host",), "cpu",
+                                  lambda src=src: HostTable.from_table(src))
+                elif ax is None:
+                    t = padded[name]
+                    resident[name] = place.get(
+                        name, src, (0, t.capacity), dev,
+                        lambda t=t: _on_device(t, dev))
                 else:               # this rank's block
                     rows = padded[name].capacity // shards
-                    resident[name] = _block(tables[name], rank * rows, rows,
-                                            dev)
-        if streamed:
-            out = _streamed_exec(proot, resident, tables, dev, rb, env)
-            if isinstance(out, Table):
-                out = out.with_part(phys.Replicated())
-        else:
-            out = interpret(resident, proot, rb, env)
-        return (out, rb.build()) if with_report else out
+                    resident[name] = place.get(
+                        name, src, (rank * rows, rows), dev,
+                        lambda src=src, rows=rows: _block(src, rank * rows,
+                                                          rows, dev))
 
+        def runner(params: dict | None = None):
+            env = check_params(params)
+            rb = ReportBuilder() if with_report else None
+            if streamed:
+                out = _streamed_exec(proot, resident, host, dev, rb, env,
+                                     caps)
+                if isinstance(out, Table):
+                    out = out.with_part(phys.Replicated())
+            else:
+                out = interpret(resident, proot, caps, rb, env)
+            return (out, rb.build()) if with_report else out
+
+        return runner
+
+    def compiled(tables: Dict[str, Table], params: dict | None = None):
+        check_params(params)
+        return bind(tables)(params)
+
+    compiled.bind = bind
     compiled.explain = lambda tables: phys.explain(lower(tables)[0])
     return compiled
 

@@ -129,6 +129,48 @@ class ExecutionReport:
         return "; ".join(f"{k}: {v}" for k, v in sorted(iss.items()))
 
 
+@dataclasses.dataclass
+class ServingStats:
+    """Per-request counters of one :class:`repro_torch.db.serving.
+    QueryService` (host ints).
+
+    ``cache_hits`` / ``cache_misses`` count whether a request's FIRST
+    plan lookup was served from the plan cache; ``batched_points`` sums
+    the parameter points of sweeps (each sweep is one request);
+    ``retry_attempts`` counts escalation attempts beyond each request's
+    first.
+    """
+    requests: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    batched_requests: int = 0
+    batched_points: int = 0
+    retry_attempts: int = 0
+
+    def record(self, hit: bool, points: int = 1, attempts: int = 1) -> None:
+        self.requests += 1
+        if hit:
+            self.cache_hits += 1
+        else:
+            self.cache_misses += 1
+        if points > 1:
+            self.batched_requests += 1
+            self.batched_points += points
+        self.retry_attempts += max(0, attempts - 1)
+
+    @property
+    def hit_rate(self) -> float:
+        return self.cache_hits / max(1, self.requests)
+
+    def as_dict(self) -> dict:
+        return dict(requests=self.requests, cache_hits=self.cache_hits,
+                    cache_misses=self.cache_misses,
+                    batched_requests=self.batched_requests,
+                    batched_points=self.batched_points,
+                    retry_attempts=self.retry_attempts,
+                    hit_rate=round(self.hit_rate, 4))
+
+
 def nan_count(state):
     """Total NaN count over the floating fields of a UDA state (a
     NamedTuple of tensors), as an int32 tensor on the state's device.  NaN,

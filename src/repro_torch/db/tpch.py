@@ -25,8 +25,8 @@ import torch
 from ..core.config import default_float, resolve_device
 from ..core.uda import segment_sum
 from . import operators as ops
-from .plans import (FKJoin, GroupAgg, Map, Project, ReweightGreater, Scan,
-                    Select, compile_plan)
+from .plans import (FKJoin, GroupAgg, Map, Param, Parameterized, Project,
+                    ReweightGreater, Scan, Select, compile_plan)
 from .table import Table
 
 DAY0_1995 = 9131          # days since epoch-ish origin for synthetic dates
@@ -269,6 +269,42 @@ def q20_plan(nation_name: int = 3, max_groups: int = 1024,
     excess-stock pipeline."""
     return Project(_q20_r10(nation_name, max_groups, avail_frac),
                    ("s_name",), 64)
+
+
+def serving_plans(max_groups: int = 512) -> dict:
+    """One representative logical plan per TPC-H query: the serving
+    workload (``launch/serve.py --db``) and the cache-hit bit-equality
+    tests submit exactly these.  The defaults are the JAX package's; at
+    SF1 Q3, Q18 and Q20 need larger group capacities."""
+    return {"q1": q1_plan(), "q3": q3_plan(max_groups=max_groups),
+            "q6": q6_plan(), "q18": q18_plan(max_groups=4 * max_groups),
+            "q20": q20_plan()}
+
+
+# ------------------------------------------------- parameterized families
+def q6_family():
+    """Q6 as a parameterized family: the discount window and quantity
+    limit are lifted :class:`~repro_torch.db.plans.Param` holes
+    (``disc_lo`` / ``disc_hi`` / ``qty_lim``), so one binding serves every
+    setting (:meth:`repro_torch.db.serving.QueryService.sweep`)."""
+    sel = Select(Scan("lineitem"), Parameterized(
+        lambda t, lo, hi, lim: (t["l_shipdate"] >= DAY0_1995 - 400)
+        & (t["l_shipdate"] < DAY0_1995)
+        & (t["l_discount"] >= lo) & (t["l_discount"] <= hi)
+        & (t["l_quantity"] < lim),
+        ("disc_lo", "disc_hi", "qty_lim")))
+    val = Map(sel, "q6_value", lambda t: t["l_quantity"] * t["l_discount"])
+    return GroupAgg(val, (), "q6_value", "SUM", 1, "normal",
+                    extra=(("cumulants", "q6_value", "SUM", "cumulants"),))
+
+
+def q18_family(max_groups: int = 2048):
+    """Q18 as a parameterized family: the quantity cutoff is the lifted
+    ``qty_threshold`` param of the reweight, so threshold sweeps share one
+    binding."""
+    return ReweightGreater(Scan("lineitem"), ("l_orderkey",), "l_quantity",
+                           "", max_groups,
+                           threshold=Param("qty_threshold"))
 
 
 # --------------------------------------------------------------- queries

@@ -36,4 +36,4 @@ def test_guard_sees_the_whole_package():
     assert {"uda.py", "plans.py", "physical.py", "tpch.py", "pb_cf.py",
             "group_cf.py", "pgf.py", "poisson_binomial.py", "polymul.py",
             "report.py", "faults.py", "chip_smoke.py", "distributed.py",
-            "mesh.py", "ranks.py"} <= names
+            "mesh.py", "ranks.py", "serving.py", "serve.py"} <= names

@@ -74,6 +74,74 @@ def test_fk_join_matches_jax(seed):
         np.testing.assert_array_equal(to[k].numpy(), np.asarray(jo[k]))
 
 
+def test_general_join_cross_product_matches_jax():
+    """The cross-product case of tests/test_operators.py: |L| x |R| pairs,
+    p = px * py (Table I row IV)."""
+    ja, ta = _tables({"x": np.array([1, 2])}, np.array([0.5, 0.6]),
+                     np.ones(2, bool))
+    jb, tb = _tables({"y": np.array([7, 8, 9])}, np.array([0.1, 0.2, 0.3]),
+                     np.ones(3, bool))
+    jo = jops.general_join(ja, jb, lambda l, r, i, j: jnp.ones_like(i, bool),
+                           ["y"])
+    to = tops.general_join(ta, tb, lambda l, r, i, j: torch.ones_like(
+        i, dtype=torch.bool), ["y"])
+    assert to.capacity == jo.capacity == 6
+    np.testing.assert_array_equal(to.prob.numpy(), np.asarray(jo.prob))
+    np.testing.assert_allclose(to.prob.numpy(), np.outer(
+        [0.5, 0.6], [0.1, 0.2, 0.3]).reshape(-1), rtol=1e-15)
+    np.testing.assert_array_equal(to.valid.numpy(), np.asarray(jo.valid))
+    for k in ("x", "y"):
+        np.testing.assert_array_equal(to[k].numpy(), np.asarray(jo[k]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_general_join_theta_matches_jax(seed):
+    """A conditional theta join (l.a < r.b and r.c even) with a suffix and
+    invalid rows on both sides: same pairs, columns, p and validity."""
+    rng = np.random.default_rng(seed)
+    nl, nr = 9, 6
+    jl, tl = _tables({"a": rng.integers(0, 10, nl)}, rng.uniform(0, 1, nl),
+                     np.arange(nl) != 2)
+    right = {"b": rng.integers(0, 10, nr), "c": np.arange(nr) % 3}
+    jr, tr = _tables(right, rng.uniform(0, 1, nr), np.arange(nr) != 1)
+
+    def cond(l, r, i, j):
+        return (l["a"][i] < r["b"][j]) & (r["c"][j] % 2 == 0)
+    jo = jops.general_join(jl, jr, cond, ["b", "c"], suffix="_r")
+    to = tops.general_join(tl, tr, cond, ["b", "c"], suffix="_r")
+    assert sorted(to.columns) == sorted(jo.columns) == ["a", "b_r", "c_r"]
+    assert 0 < int(to.valid.sum()) < nl * nr
+    np.testing.assert_array_equal(to.valid.numpy(), np.asarray(jo.valid))
+    np.testing.assert_array_equal(to.prob.numpy(), np.asarray(jo.prob))
+    for k in to.columns:
+        np.testing.assert_array_equal(to[k].numpy(), np.asarray(jo[k]))
+
+
+def test_uda_merge_matches_jax(rng):
+    """uda.merge of two accumulated state dicts, float64, against the JAX
+    package's (rtol=1e-9, as the accumulate parity below)."""
+    n, g = 300, 5
+    p, v = rng.uniform(0, 1, n), rng.integers(0, 30, n)
+    ids = rng.integers(0, g, n)
+    halves = (slice(0, 170), slice(170, n))
+    js = [juda.accumulate(_udas(juda), jnp.asarray(p[h]), jnp.asarray(v[h]),
+                          jnp.asarray(ids[h]), max_groups=g) for h in halves]
+    ts = [tuda.accumulate(_udas(tuda), torch.from_numpy(p[h]),
+                          torch.from_numpy(v[h]), torch.from_numpy(ids[h]),
+                          max_groups=g) for h in halves]
+    jm = juda.merge(_udas(juda), *js)
+    tm = tuda.merge(_udas(tuda), *ts)
+    assert sorted(tm) == sorted(jm)
+    for name in jm:
+        for a, b in zip(tm[name], jm[name]):
+            b = np.asarray(b)
+            atol = (1e-12 * np.abs(b).max(axis=0) if name == "cum"
+                    else 1e-12)
+            np.testing.assert_array_less(np.abs(a.numpy() - b),
+                                         1e-9 * np.abs(b) + atol + 1e-300,
+                                         err_msg=name)
+
+
 def test_contract_violations_raise():
     _, dup = _tables({"k": np.array([1, 2, 2])}, np.ones(3), np.ones(3, bool))
     _, left = _tables({"k": np.array([1])}, np.ones(1), np.ones(1, bool))
