@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's resident TPC-H path, its streamed
-(out-of-core) path, its value layer, its multi-rank path and its serving
-layer on one NVIDIA card.
+(out-of-core) path, its value layer, its multi-rank path, its serving
+layer and its language-model serving on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Nine phases, each of which raises on a failed check (exit code != 0):
+Ten phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -101,6 +101,24 @@ Nine phases, each of which raises on a failed check (exit code != 0):
    ``q18_topk`` with kappa 2 (one attempt, a hit, the same bits);
    ``launch.serve.main(["--db"])``.  Cold, warm and lowering ms per plan,
    warm queries/s and sweep ms per point are printed.
+10. LM serving (``configs/``, ``models/``, ``launch.serve.generate``),
+   plain PyTorch in bfloat16 (no kernel of the DB path runs; the
+   counters must not move): (a) yi_6b at its full published config
+   (6.06 B parameters, random weights from a seeded generator on the
+   card): ``generate`` at the serve defaults (batch 4, prompt 32, 16
+   tokens) twice, equal tokens; ms a decode step, tokens/s, the step's
+   weight-streaming bound (parameter bytes over 3.35 TB/s), peak device
+   memory, and a profiled window of decode steps (device busy share,
+   device operations a step).  (b) Each of the ten archs at its full
+   published widths, cut to one period of its layer pattern (plus
+   recurrentgemma's 2-layer tail; MoE dropless): a forward over 2 x 256
+   tokens (embeddings for internvl2 and hubert), finite; for the nine
+   causal ones 256 single-token decode steps against ``init_cache``,
+   max |decode - forward| / max |forward| within ``LM_DECODE_BOUND``.
+   (c) Each reduced config (float32), the same weights on the CPU and the
+   card: forward logits within ``LM_CARD_CPU_BOUND``.  (d)
+   ``launch.serve.main(["--arch", a, "--device", "cuda"])`` for each
+   causal arch (internvl2's embedding inputs refused).
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -2461,6 +2479,271 @@ def profile_query(name: str, fn) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy, top_kernels=top)
 
 
+# ------------------------------------------- language-model serving (10)
+#: (a): ``launch.serve``'s defaults (batch, prompt length, generated
+#: tokens) on yi_6b at its full published config.
+LM_SERVE = dict(arch="yi_6b", batch=4, prompt_len=32, gen=16)
+#: (b): batch and length of each arch's forward and decode comparison.
+LM_CHECK = dict(batch=2, tokens=256)
+#: (b): bound on max |decode - forward| / max |forward| of the logits in
+#: bfloat16 (about 5 bfloat16 ulps of the largest logit: the two paths
+#: differ in product shapes and in the decode's single-shot softmax, so
+#: their bfloat16 roundings differ; a wrong mask or cache slot errs by
+#: O(1)).
+LM_DECODE_BOUND = 2e-2
+#: (c): bound on max |card - CPU| / max |CPU| of the reduced configs'
+#: float32 logits (TF32 off; the order of float32 sums differs).
+LM_CARD_CPU_BOUND = 1e-4
+#: the host-side steps a profiled window of decode steps covers.
+LM_PROFILE_STEPS = 4
+
+
+def one_period(cfg):
+    """``cfg`` at its full widths cut to one period of its pattern (plus
+    its tail); an MoE dropless (capacity factor n_experts / top_k, as the
+    reduced configs' 4.0 is), so a 512-token forward and a 2-token decode
+    step route every token alike."""
+    import dataclasses
+    cut = dataclasses.replace(
+        cfg, n_layers=len(cfg.pattern) + len(cfg.tail_pattern))
+    if cfg.n_experts:
+        cut = dataclasses.replace(
+            cut, capacity_factor=cfg.n_experts / cfg.top_k)
+    return cut
+
+
+def lm_inputs(cfg, gen, batch: int, tokens: int, device):
+    import torch
+    from repro_torch.models import frontends
+    if cfg.embedding_inputs:
+        return frontends.fake_embeddings(gen, batch, tokens, cfg.d_model,
+                                         device=device)
+    return torch.randint(0, cfg.vocab_size, (batch, tokens), generator=gen,
+                         device=device)
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def decode_window(cfg, model, cache, cl, tok, steps: int) -> dict:
+    """Device time and kernel launches of ``steps`` decode steps
+    (torch.profiler), and the device's busy share of their wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, cache, cl = api.decode_step(cfg, model, tok, cache, cl)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = launches = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        busy += us / 1e3
+        launches += e.count
+    return dict(wall_ms_a_step=wall_ms / steps,
+                device_busy_ms_a_step=busy / steps,
+                busy_share=busy / wall_ms,
+                device_ops_a_step=launches / steps)
+
+
+def lm_serve_full(card: str, dev: str = "cuda") -> dict:
+    """(a) ``launch.serve.generate`` on yi_6b at its full config."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    c = LM_SERVE
+    cfg = get_config(c["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
+                           generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    max_len = c["prompt_len"] + c["gen"] + 1
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve.generate(cfg, model, prompt, max_len, c["gen"])
+        torch.cuda.synchronize()
+        runs.append((toks, time.perf_counter() - t0))
+    toks, secs = runs[1]
+    check(toks.shape == (c["batch"], c["gen"]), f"generate: {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generate: a token outside the vocabulary")
+    check(torch.equal(runs[0][0], toks), "generate: two runs differ")
+    steps = c["prompt_len"] + c["gen"]
+    # a profiled window of steps at the last positions (the cache's
+    # contents do not change the work)
+    cache = api.init_cache(cfg, c["batch"], max_len, dtype=cfg.torch_dtype,
+                           device=dev)
+    window = decode_window(cfg, model, cache, steps - LM_PROFILE_STEPS,
+                           toks[:, -1:], LM_PROFILE_STEPS)
+    out = dict(arch=cfg.name, params=nparams, param_bytes=nbytes,
+               init_s=init_s, generate_s=[r[1] for r in runs],
+               ms_a_step=secs / steps * 1e3,
+               tokens_per_s=c["batch"] * c["gen"] / secs,
+               decode_tokens_per_s=c["batch"] * steps / secs,
+               bound_ms_a_step=nbytes / HBM_BYTES_PER_S * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               profiled=window, tokens=toks[0].tolist())
+    print(f"LM (a) {cfg.name} full config ({nparams / 1e9:.3f} B params, "
+          f"{nbytes / 1e9:.2f} GB bf16, init {init_s:.1f} s): generate "
+          f"batch {c['batch']}, prompt {c['prompt_len']}, gen {c['gen']}: "
+          f"{out['ms_a_step']:.2f} ms a decode step ({steps} steps, "
+          f"{secs * 1e3:.1f} ms; first run {runs[0][1] * 1e3:.1f} ms), "
+          f"{out['tokens_per_s']:.1f} generated tokens/s, "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s through decode_step; "
+          f"bound {out['bound_ms_a_step']:.2f} ms a step (weights over "
+          f"3.35 TB/s); peak {out['peak_gb']:.2f} GB; profiled "
+          f"{LM_PROFILE_STEPS} steps: {window['wall_ms_a_step']:.2f} ms "
+          f"wall, {window['device_busy_ms_a_step']:.2f} ms device busy "
+          f"({100 * window['busy_share']:.1f}%), "
+          f"{window['device_ops_a_step']:.0f} device ops a step; both runs "
+          f"equal [{card}]")
+    return out
+
+
+def lm_arch_check(arch: str, dev: str = "cuda") -> dict:
+    """(b) one arch at full widths, one period deep: forward, then
+    decode step by step against the forward's logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = one_period(get_config(arch))
+    b, t = LM_CHECK["batch"], LM_CHECK["tokens"]
+    gen = torch.Generator(dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, gen, dev)
+    x = lm_inputs(cfg, gen, b, t, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fwd = api.prefill(cfg, model, x)              # first call: warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = api.prefill(cfg, model, x)
+    torch.cuda.synchronize()
+    row = dict(arch=arch, n_layers=cfg.n_layers,
+               capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+               params=sum(p.numel() for p in model.parameters()),
+               init_s=init_s, forward_ms=(time.perf_counter() - t0) * 1e3)
+    check(fwd.shape == (b, t, cfg.vocab_size), f"{arch}: {fwd.shape}")
+    check(bool(torch.isfinite(fwd).all()), f"{arch}: forward not finite")
+    if cfg.causal:
+        cache = api.init_cache(cfg, b, t, dtype=cfg.torch_dtype,
+                               device=dev)
+        dec = torch.empty_like(fwd)
+        cl = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(t):
+            lg, cache, cl = api.decode_step(cfg, model, x[:, i:i + 1],
+                                            cache, cl)
+            dec[:, i] = lg[:, 0]
+        torch.cuda.synchronize()
+        row["decode_ms_a_step"] = (time.perf_counter() - t0) * 1e3 / t
+        check(bool(torch.isfinite(dec).all()), f"{arch}: decode not finite")
+        row["decode_vs_forward"] = rel_err(dec, fwd)
+        check(row["decode_vs_forward"] <= LM_DECODE_BOUND,
+              f"{arch}: decode vs forward {row['decode_vs_forward']:.3e} > "
+              f"{LM_DECODE_BOUND}")
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"LM (b) {arch}: {cfg.n_layers} layers at full width "
+          f"({row['params'] / 1e9:.3f} B params, init {init_s:.1f} s), "
+          f"forward {b}x{t} {row['forward_ms']:.1f} ms (warm)"
+          + (f", {t} decode steps {row['decode_ms_a_step']:.2f} ms a step, "
+             f"max |decode - forward| / max |forward| "
+             f"{row['decode_vs_forward']:.3e} (bound {LM_DECODE_BOUND})"
+             if cfg.causal else ", encoder (no decode)")
+          + (f", dropless capacity factor {cfg.capacity_factor:g}"
+             if cfg.n_experts else "")
+          + f"; peak {row['peak_gb']:.2f} GB")
+    return row
+
+
+def lm_card_vs_cpu(arch: str, dev: str = "cuda") -> float:
+    """(c) the reduced config (float32), the same weights on both."""
+    import copy
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import api
+    cfg = get_reduced(arch)
+    gen = torch.Generator().manual_seed(3)
+    cpu = api.init_params(cfg, gen, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    x = lm_inputs(cfg, gen, 2, 64, "cpu")
+    want = api.prefill(cfg, cpu, x)
+    got = api.prefill(cfg, card, x.to(dev)).cpu()
+    err = rel_err(got, want)
+    check(err <= LM_CARD_CPU_BOUND,
+          f"{arch}: card vs CPU {err:.3e} > {LM_CARD_CPU_BOUND}")
+    return err
+
+
+def lm_phase(card: str, dev: str = "cuda") -> dict:
+    """Phase 10: LM serving (module docstring)."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    before = ops.launches()
+    report = dict(serve=lm_serve_full(card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["archs"] = []
+    for arch in ARCH_IDS:
+        report["archs"].append(lm_arch_check(arch, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["card_vs_cpu"] = {a: lm_card_vs_cpu(a, dev) for a in ARCH_IDS}
+    print("LM (c) reduced configs, float32, card vs CPU, max |card - CPU| "
+          "/ max |CPU|: " + ", ".join(f"{a} {e:.2e}" for a, e in
+                                      report["card_vs_cpu"].items())
+          + f" (bound {LM_CARD_CPU_BOUND})")
+    cli = {}
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        if not cfg.causal:
+            continue
+        argv = ["--arch", arch, "--device", dev]
+        if cfg.embedding_inputs:
+            try:
+                serve.main(argv)
+            except SystemExit as e:
+                check(e.code == 2, f"serve.main {arch}: exit {e.code}")
+                cli[arch] = "refused (embedding inputs)"
+                continue
+            raise AssertionError(f"serve.main {arch}: not refused")
+        t0 = time.perf_counter()
+        check(serve.main(argv) == 0, f"serve.main {arch}")
+        cli[arch] = time.perf_counter() - t0
+    report["cli_s"] = cli
+    print("LM (d) launch.serve.main --arch A --device cuda: "
+          + ", ".join(f"{a} {v:.2f} s" if isinstance(v, float)
+                      else f"{a} {v}" for a, v in cli.items()))
+    check(ops.launches() == before,
+          "LM serving launched a kernel of the DB path")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10 took {report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2592,6 +2875,9 @@ def main() -> int:
         out_dir, mesh_ref, query_launches,
         serving=lambda db, mesh: serving_phase(db, mesh, mesh_ref))
     report["serving"] = report["mesh"].pop("serving")
+    torch.cuda.empty_cache()
+
+    report["lm"] = lm_phase(card)
     torch.cuda.empty_cache()
 
     # launches: the runs of the TPC-H path, the value-layer path, the

@@ -1,9 +1,11 @@
 """PyTorch + CUDA port of the probabilistic-database engine in :mod:`repro`.
 
-The package mirrors :mod:`repro`'s layout (``core/``, ``kernels/``, ``db/``)
-and runs the resident single-device TPC-H path on an NVIDIA Hopper card,
-with the four CF / cumulant accumulations on hand-written CUDA kernels
-(``kernels/csrc``).  It imports neither JAX nor :mod:`repro`.
+The package mirrors :mod:`repro`'s layout (``core/``, ``kernels/``, ``db/``,
+``configs/``, ``models/``, ``launch/``) and runs the probabilistic-DB
+engine on an NVIDIA Hopper card, with the CF / cumulant accumulations and
+the schoolbook product on hand-written CUDA kernels (``kernels/csrc``),
+and the language-model stack as far as serving (plain PyTorch: the
+reference has no kernel there).  It imports neither JAX nor :mod:`repro`.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when no
 card is present.  The CPU runs only when the caller asks for it, and there

@@ -1,3 +1,4 @@
 """Launchers of the port: process-group meshes
-(:mod:`repro_torch.launch.mesh`) and the query-serving loop
-(:mod:`repro_torch.launch.serve`)."""
+(:mod:`repro_torch.launch.mesh`) and the serving loops
+(:mod:`repro_torch.launch.serve`: language-model ``generate`` and the
+query service)."""

@@ -1,0 +1,22 @@
+"""Assigned-architecture model stack, the port of ``repro.models``.
+
+    layers.py       norms, RoPE, initialisers
+    transformer.py  GQA attention: causal/bidir/local, KV cache, streaming
+    mlp.py          swiglu / gelu / relu^2 / rwkv channel-mix
+    moe.py          top-k expert routing with static capacity
+    rglru.py        RecurrentGemma RG-LRU recurrent block
+    rwkv6.py        RWKV-6 chunked WKV time-mix
+    api.py          init/forward/loss/prefill/decode over any ModelConfig
+    frontends.py    [vlm]/[audio] embedding stubs
+    convert.py      the JAX package's parameter tree -> a port model
+
+Plain PyTorch on any device: no custom kernel lies on this path (the JAX
+package computes it in plain ``jnp`` too).  The reference's sharding
+hooks and ``runmode.py`` (XLA cost calibration) have no counterpart yet
+(ROADMAP Queue 1 item 6c).
+"""
+from . import (api, convert, frontends, layers, mlp, moe, rglru, rwkv6,
+               transformer)
+
+__all__ = ["api", "convert", "frontends", "layers", "mlp", "moe", "rglru",
+           "rwkv6", "transformer"]

@@ -1,0 +1,230 @@
+"""Unified model API over all assigned architectures.
+
+    init_params(cfg, generator, device)   the model (:class:`Model`), random
+    init_cache(cfg, batch, max_len)       decode state (KV / ring / recurrent)
+    forward(cfg, model, tokens, ..)       logits, cache, MoE aux loss
+    loss_fn(cfg, model, tokens, labels)   token cross-entropy (+ MoE aux)
+    prefill / decode_step                 serving entry points
+
+Layers run in order: layer ``i < n_periods * len(pattern)`` is pattern
+position ``i % len(pattern)`` of period ``i // len(pattern)``, and the
+``tail_pattern`` layers (recurrentgemma's last 2) follow.  The decode
+cache keeps the reference's layout -- per pattern position a dict of
+tensors stacked over the periods (leading dim ``n_periods``), and
+``cache["tail"]`` per tail layer -- and each layer writes its slice in
+place.  ``cache_len`` is a Python int, so a decode step never waits for
+the device.  The JAX package's parameter tree maps onto a model through
+:func:`repro_torch.models.convert.from_reference`.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.config import resolve_device
+from . import layers as L
+from . import moe as MOE
+from . import rglru as RG
+from . import rwkv6 as RW
+from . import transformer as T
+from .mlp import MLP
+
+
+def layer_kinds(cfg) -> list:
+    """The mixer kind of every layer, in order."""
+    return list(cfg.pattern) * cfg.n_periods + list(cfg.tail_pattern)
+
+
+class Block(nn.Module):
+    """One (mixer + ffn) block with pre-norms; ``mixer`` and ``ffn`` by
+    the reference's names."""
+
+    def __init__(self, cfg, kind: str, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.kind = kind
+        self.norm1 = L.Norm(cfg, cfg.d_model, device=device)
+        self.norm2 = L.Norm(cfg, cfg.d_model, device=device)
+        if kind in ("attn", "attn_local"):
+            self.mixer = T.Attention(cfg, kind, device=device)
+        elif kind == "rglru":
+            self.mixer = RG.RGLRU(cfg, device=device)
+        elif kind == "rwkv6":
+            self.mixer = RW.RWKV6TimeMix(cfg, device=device)
+        else:
+            raise ValueError(kind)
+        self.ffn = MOE.MoE(cfg, device=device) if cfg.n_experts \
+            else MLP(cfg, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for m in (self.norm1, self.norm2, self.mixer, self.ffn):
+            m.reset_parameters(generator)
+
+    def forward(self, x, positions, cache=None, cache_len: int = 0):
+        """Returns (x, aux or None); ``cache`` (this layer's) is written in
+        place."""
+        h = self.norm1(x)
+        if self.kind in ("attn", "attn_local"):
+            mixed = self.mixer(h, positions, cache, cache_len)
+        else:
+            mixed = self.mixer(h, cache)
+        x = x + mixed
+
+        h2 = self.norm2(x)
+        aux = None
+        if self.cfg.n_experts:
+            out, aux = self.ffn(h2)
+        elif self.cfg.mlp == "rwkv_channel":
+            if cache is None:
+                shifted = torch.cat([torch.zeros_like(h2[:, :1]),
+                                     h2[:, :-1]], dim=1)
+            else:
+                shifted = cache["shift_c"][:, None].to(h2.dtype)
+            out = self.ffn(h2, shifted=shifted)
+            if cache is not None:      # after the read: shifted may alias
+                cache["shift_c"].copy_(h2[:, -1])
+        else:
+            out = self.ffn(h2)
+        return x + out, aux
+
+
+class Model(nn.Module):
+    """The whole stack: ``embed`` (absent for embedding inputs),
+    ``layers`` in order, ``final_norm`` and ``head`` (absent when the
+    embedding is tied)."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.torch_dtype
+        self.layers = nn.ModuleList(Block(cfg, kind, device=device)
+                                    for kind in layer_kinds(cfg))
+        self.final_norm = L.Norm(cfg, cfg.d_model, device=device)
+        self.embed = None if cfg.embedding_inputs else nn.Embedding(
+            cfg.vocab_size, cfg.d_model, device=device, dtype=dt)
+        self.head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
+                              device=device, dtype=dt) \
+            if not cfg.tie_embeddings or cfg.embedding_inputs else None
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for blk in self.layers:
+            blk.reset_parameters(generator)
+        self.final_norm.reset_parameters(generator)
+        if self.embed is not None:
+            L.truncnorm_(self.embed.weight, 1.0, generator)
+        if self.head is not None:
+            L.dense_(self.head, generator)
+
+    def layer_caches(self, cache) -> list:
+        """Each layer's view of a decode cache (see the module docstring)."""
+        p = len(self.cfg.pattern)
+        n_body = p * self.cfg.n_periods
+        out = []
+        for i in range(len(self.layers)):
+            if i < n_body:
+                out.append({k: v[i // p] for k, v in cache[str(i % p)].items()})
+            else:
+                out.append(cache["tail"][str(i - n_body)])
+        return out
+
+    def forward(self, tokens, cache=None, cache_len: int = 0):
+        """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
+        cache (updated in place) or None, aux loss)."""
+        cfg = self.cfg
+        if cfg.embedding_inputs:
+            x = tokens.to(cfg.torch_dtype)
+        else:
+            x = self.embed(tokens)
+        t = x.shape[1]
+        positions = torch.arange(cache_len, cache_len + t, dtype=torch.int32,
+                                 device=x.device)
+        views = [None] * len(self.layers) if cache is None \
+            else self.layer_caches(cache)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk, c in zip(self.layers, views):
+            x, a = blk(x, positions, c, cache_len)
+            if a is not None:
+                aux = aux + a
+        x = self.final_norm(x)
+        if self.head is not None:
+            logits = self.head(x)
+        else:
+            logits = x @ self.embed.weight.T
+        return logits, cache, aux
+
+
+def _check(cfg, model):
+    if model.cfg != cfg:
+        raise ValueError(f"model built for {model.cfg.name}, called with "
+                         f"{cfg.name}")
+
+
+# ---------------------------------------------------------------- params
+def init_params(cfg, generator, device="cuda") -> Model:
+    """A model of ``cfg`` with the reference's initialisers, drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``)."""
+    dev = resolve_device(device)
+    model = Model(cfg, device="meta").to_empty(device=dev)
+    model.reset_parameters(generator)
+    return model
+
+
+# ---------------------------------------------------------------- cache
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """Decode state, stacked (n_periods, ...) per pattern position."""
+    dev = resolve_device(device)
+
+    def one(kind, lead=()):
+        if kind in ("attn", "attn_local"):
+            st = T.init_attn_cache(cfg, kind, batch, max_len, dtype, "meta")
+        elif kind == "rglru":
+            st = RG.init_rglru_state(cfg, batch, dtype, "meta")
+        elif kind == "rwkv6":
+            st = RW.init_rwkv_state(cfg, batch, dtype, "meta")
+        else:
+            raise ValueError(kind)
+        return {k: torch.zeros(lead + v.shape, dtype=v.dtype, device=dev)
+                for k, v in st.items()}
+
+    cache = {str(j): one(kind, (cfg.n_periods,))
+             for j, kind in enumerate(cfg.pattern)}
+    if cfg.tail_pattern:
+        cache["tail"] = {str(j): one(kind)
+                         for j, kind in enumerate(cfg.tail_pattern)}
+    return cache
+
+
+# --------------------------------------------------------------- forward
+def forward(cfg, model, tokens, *, cache=None, cache_len: int = 0):
+    """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
+    cache or None, aux_loss); a given cache is updated in place."""
+    _check(cfg, model)
+    return model(tokens, cache=cache, cache_len=cache_len)
+
+
+def loss_fn(cfg, model, tokens, labels):
+    logits, _, aux = forward(cfg, model, tokens)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (logz - gold).mean()
+    return ce + 0.01 * aux, dict(ce=ce, aux=aux)
+
+
+# --------------------------------------------------------------- serving
+@torch.no_grad()
+def prefill(cfg, model, tokens):
+    """Forward pass producing logits (no cache; decode fills its own)."""
+    return forward(cfg, model, tokens)[0]
+
+
+@torch.no_grad()
+def decode_step(cfg, model, tokens, cache, cache_len: int):
+    """One-token decode against the cache.  tokens (B,1) or (B,1,D).
+    Returns (logits, cache (updated in place), cache_len + 1)."""
+    logits, cache, _ = forward(cfg, model, tokens, cache=cache,
+                               cache_len=cache_len)
+    return logits, cache, cache_len + 1

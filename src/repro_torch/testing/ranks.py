@@ -5,6 +5,10 @@ subprocesses).
     results = run_ranks(fn, 3, backend="gloo", device="cpu",
                         store_dir=tmp_path, args=(...))
 
+``device`` is where every rank computes; it defaults to the card
+(``cuda:0`` unless another index is given) and raises on a host without
+one, so the CPU runs only when asked, as above.
+
 Each rank is a process started with the **spawn** method (a fork after
 CUDA has started is broken), joins a default process group through a
 ``FileStore`` under ``store_dir`` (no TCP port, so concurrent runs never
@@ -21,6 +25,8 @@ import time
 import traceback
 
 import torch
+
+from ..core.config import resolve_device
 
 
 class RankFailed(RuntimeError):
@@ -75,12 +81,15 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
     torch.save(_to_cpu(result), out / f"result_{rank}.pt")
 
 
-def run_ranks(fn, world: int, *, backend: str = "gloo", device="cpu",
+def run_ranks(fn, world: int, *, backend: str = "gloo", device="cuda",
               store_dir, args: tuple = (), timeout: float = 600.0) -> list:
     """Run ``fn(*args)`` on ``world`` ranks (see module docstring), each
     with one intra-op thread.  ``fn`` must be importable by name (a
     module-level function); ``store_dir`` must be empty or new."""
     import torch.multiprocessing as mp
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
     out = pathlib.Path(store_dir)
     out.mkdir(parents=True, exist_ok=True)
     if any(out.iterdir()):

@@ -315,9 +315,18 @@ def test_run_ranks_raises_the_failing_rank(tmp_path):
     """A rank's exception fails run_ranks with its traceback (the peer
     blocked in a collective is ended, never left hanging)."""
     with pytest.raises(RankFailed) as ei:
-        run_ranks(_fail_on_rank_one, 2, store_dir=tmp_path)
+        run_ranks(_fail_on_rank_one, 2, device="cpu", store_dir=tmp_path)
     assert ei.value.rank == 1
     assert "ValueError: rank one fails" in str(ei.value)
+
+
+def test_run_ranks_defaults_to_the_card(tmp_path, monkeypatch):
+    """Without ``device=`` the ranks compute on the card; on a host
+    without one that raises before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        run_ranks(_fail_on_rank_one, 2, store_dir=tmp_path)
+    assert not any(tmp_path.iterdir())
 
 
 def _fail_on_rank_one():

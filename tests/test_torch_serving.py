@@ -534,7 +534,7 @@ def test_queryservice_healed_replay(tables):
 
 
 # ---------------------------------------------------------- entry point
-def test_serve_main_db(capsys):
+def test_serve_main_db(capsys, monkeypatch):
     from repro_torch.launch import serve
     assert serve.main(["--db", "--device", "cpu", "--scale", "48",
                        "--rounds", "2", "--sweep", "4"]) == 0
@@ -543,10 +543,10 @@ def test_serve_main_db(capsys):
     assert "round 1: 5 queries" in out and "(5/5 cache hits)" in out
     assert "q6 sweep: 4 points in" in out
     assert "'evictions': 0" in out
-    with pytest.raises(SystemExit) as e:
+    # without --db: language-model serving, on the card by default
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main([])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
 
 
 # ------------------------------------------------------ 2-rank gloo mesh
