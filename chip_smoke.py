@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's resident TPC-H path, its streamed
 (out-of-core) path, its value layer, its multi-rank path, its serving
-layer and its language-model serving on one NVIDIA card.
+layer, its language-model serving and its language-model training on
+one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Ten phases, each of which raises on a failed check (exit code != 0):
+Eleven phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -119,6 +120,36 @@ Ten phases, each of which raises on a failed check (exit code != 0):
    card: forward logits within ``LM_CARD_CPU_BOUND``.  (d)
    ``launch.serve.main(["--arch", a, "--device", "cuda"])`` for each
    causal arch (internvl2's embedding inputs refused).
+11. LM training (``train/``, ``models/api.loss_fn`` with remat,
+   ``launch.train``), the launch counters reset before it and read after
+   it: (a) yi_6b at its full published config, bf16, ``make_train_step``
+   (AdamW with bf16 moments, accum 1, remat on) for 3 steps of 2 x 512
+   ``TokenStream`` tokens, the first a warm-up, then one profiled step:
+   ms a step, tokens/s, the model FLOPs a step needs (6 N T and the
+   masked attention) and their bound at 989 TFLOP/s beside those remat
+   and the unmasked scores add, peak memory, device busy share, device
+   ops a step; loss, grad norm and parameters finite.  The same model
+   then trains at its 4096 context (2 x 4096 tokens, four key chunks):
+   the same figures, and one step's loss + backward and clip + AdamW
+   timed apart.  (b) Each arch at full widths one period deep (as
+   phase 10 (b)), one train step on 1 x 256 tokens (the bf16 attention
+   backward); nemotron, whose train state (4 x 25.8 GB) exceeds the card,
+   takes the loss, gradients and clip without the AdamW step.  (c) The
+   reduced configs (float32), the same weights and batch on the CPU and
+   the card: every gradient within ``LM_CARD_CPU_BOUND`` of its leaf's
+   scale.  (d) Reduced yi_6b through ``run_with_failures`` (a failure
+   after step 4 of 8, checkpoints every 3) against an uninterrupted run:
+   parameters and moments bit-equal.  (f) ``compressed_psum`` over two
+   gloo ranks sharing the card: both ranks bit-equal to the shared-scale
+   int8 mean, within 5% of the true mean.  (g) ``launch.train.main``
+   (reduced yi_6b, 4 steps).  (e) ``ProbabilisticSampler`` on 4,096
+   float32 probabilities: exactly one ``logcf`` launch and no other in
+   the whole phase; then, against the plain version on the card, the log
+   CF within the kernel phase's 2e-5 of sum |term|, the PGF within 2e-5,
+   the capacity at eps 1e-2 equal (1e-4 and 1e-6 printed beside float64).
+   Kernel and plain share the float32 frequency grid, so they are held to
+   each other; against float64 terms each is printed (at N = 4,097 with
+   p in [0.5, 0.95] the float32 grid alone errs by ~1.7e-4 of sum |term|).
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -130,6 +161,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -439,6 +471,21 @@ def cf_window_errors(la, an, p, v, num_freq, starts, width) -> tuple:
         rel = max(rel, float((e_la / s_la.clamp(min=1)).max()),
                   float((e_an / s_an.clamp(min=1)).max()))
     return err_la, err_an, rel
+
+
+def cf_gap(la, an, la2, an2, p, v, num_freq, starts, width) -> float:
+    """Max |difference| of two scalar CFs (log-abs, angle mod 2 pi) on the
+    frequency windows [s, s + width), over sum |term| (at least 1)."""
+    import torch
+    rel = 0.0
+    for lo in starts:
+        k = lo + torch.arange(width, device=p.device)
+        _, _, s_la, s_an = cf_plain_sums(p, v, k, num_freq)
+        e_la = (la[k].double() - la2[k].double()).abs()
+        e_an = wrapped_angle_err(an[k], an2[k])
+        rel = max(rel, float((e_la / s_la.clamp(min=1)).max()),
+                  float((e_an / s_an.clamp(min=1)).max()))
+    return rel
 
 
 def against_earlier(name: str, t: dict, label: str = "",
@@ -2527,21 +2574,21 @@ def rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
-def decode_window(cfg, model, cache, cl, tok, steps: int) -> dict:
-    """Device time and kernel launches of ``steps`` decode steps
+def profile_window(fn, steps: int) -> dict:
+    """Device time and device operations of ``steps`` calls of ``fn``
     (torch.profiler), and the device's busy share of their wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import api
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            _, cache, cl = api.decode_step(cfg, model, tok, cache, cl)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = launches = 0.0
+    rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2549,10 +2596,25 @@ def decode_window(cfg, model, cache, cl, tok, steps: int) -> dict:
                      getattr(e, "self_cuda_time_total", 0.0))
         busy += us / 1e3
         launches += e.count
+        rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
     return dict(wall_ms_a_step=wall_ms / steps,
                 device_busy_ms_a_step=busy / steps,
                 busy_share=busy / wall_ms,
-                device_ops_a_step=launches / steps)
+                device_ops_a_step=launches / steps,
+                top=[dict(ms=ms, count=n, name=k[:80])
+                     for ms, n, k in rows[:12]])
+
+
+def decode_window(cfg, model, cache, cl, tok, steps: int) -> dict:
+    """:func:`profile_window` over ``steps`` decode steps."""
+    from repro_torch.models import api
+    state = [cache, cl]
+
+    def one():
+        _, state[0], state[1] = api.decode_step(cfg, model, tok, state[0],
+                                                state[1])
+    return profile_window(one, steps)
 
 
 def lm_serve_full(card: str, dev: str = "cuda") -> dict:
@@ -2744,6 +2806,538 @@ def lm_phase(card: str, dev: str = "cuda") -> dict:
     return report
 
 
+# ------------------------------------------ language-model training (11)
+#: (a): yi_6b at its full published config, ``make_train_step`` (AdamW,
+#: moments in the parameters' bf16, accum 1, remat on): STEPS steps of
+#: BATCH x SEQ TokenStream tokens, the first a warm-up, then one profiled.
+LM_TRAIN = dict(arch="yi_6b", batch=2, seq=512, steps=3)
+#: (a) again at yi_6b's 4096 context, on (a)'s model and state: a warm-up
+#: step, STEPS timed, one whose model part (loss + backward) and update
+#: part (clip + AdamW) are timed apart, one profiled.  The keys stream
+#: through four 1,024-key chunks, in the forward and the backward.
+LM_TRAIN_LONG = dict(batch=2, seq=4096, steps=2)
+#: tokens of one optimizer step of the train_4k shape (configs/base.py
+#: SHAPES: 4,096 x 256), for the update's share reckoned at that size
+TRAIN_4K_TOKENS = 4096 * 256
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 (tensor cores)
+#: (b): batch and length of each arch's train step at full width.
+LM_TRAIN_CHECK = dict(batch=1, tokens=256)
+#: (b): a train state (params, grads, two moments: 4x the parameter
+#: bytes) above this share of the card's memory takes the gradients and
+#: the clip but no AdamW step (nemotron: 4 x 25.8 GB).
+TRAIN_STATE_SHARE = 0.85
+#: (c): each reduced config's float32 gradients, card against CPU: max
+#: |card - CPU| over a leaf's scale (its max |g_CPU|, at least
+#: GRAD_ZERO_FLOOR of the model's largest gradient: hubert's key-bias
+#: gradient is 0 exactly, rounding noise on both), bound LM_CARD_CPU_BOUND
+#: (phase 10's for logits).
+GRAD_ZERO_FLOOR = 1e-3
+#: (d): the restart check (the reference's test_train case).
+RESTART = dict(steps=8, fail=4, ckpt_every=3, batch=4, seq=16)
+#: (e): the sampler's pool (the reference example's 50-95% inclusion) and
+#: the eps whose capacity must equal the plain version's.  A float32 PGF
+#: of 4,096 examples places its tail only to ~1e-4 (train/data.py), so
+#: the capacities at 1e-4 and 1e-6 are printed beside float64's, not held.
+#: The kernel's log CF and PGF are held to the plain version's (the same
+#: float32 frequency grid) within CF_BOUND.
+SAMPLER_POOL = 4096
+SAMPLER_EPS = 1e-2
+SAMPLER_EPS_SHOWN = (1e-4, 1e-6)
+CF_BOUND = 2e-5               # the kernel phase's logcf bound (sum |term|)
+
+
+def attn_pairs(cfg, kind: str, seq: int) -> int:
+    """(query, key) pairs one sequence's attention layer of ``kind`` needs:
+    all of them bidirectional, the causal triangle, the band of a local
+    window."""
+    if not cfg.causal:
+        return seq * seq
+    w = cfg.window if kind == "attn_local" else 0
+    if w and w < seq:
+        return w * (w + 1) // 2 + (seq - w) * w
+    return seq * (seq + 1) // 2
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """FLOPs of one train step.  ``needed``: 6 N T for the matrix products
+    (forward 2, backward 4; N the parameters outside the embedding
+    lookup) plus the attention's score and value products over the pairs
+    the masks keep, 12 hd a pair and head.  ``executed``: what the port
+    runs, with remat's recomputed forward (8 N T) and every score of the
+    square (16 hd a pair and head)."""
+    lookup = not cfg.embedding_inputs and not cfg.tie_embeddings
+    n = cfg.param_count() - (cfg.vocab_size * cfg.d_model if lookup else 0)
+    hh = cfg.n_heads * cfg.resolved_head_dim
+    kinds = [k for k in cfg.pattern * cfg.n_periods + cfg.tail_pattern
+             if k.startswith("attn")]
+    needed = sum(12 * hh * batch * attn_pairs(cfg, k, seq) for k in kinds)
+    executed = 16 * hh * batch * seq * seq * len(kinds)
+    return dict(needed=6.0 * n * batch * seq + needed,
+                executed=8.0 * n * batch * seq + executed)
+
+
+def finite_params(model) -> bool:
+    import torch
+    return all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+def flops_line(flops: dict, ms: float) -> str:
+    """The FLOP counts of :func:`train_flops` against a step of ``ms``."""
+    need, ran = flops["needed"], flops["executed"]
+    return (f"model FLOPs a step {need:.3e} needed, bound "
+            f"{need / BF16_OPS_PER_S * 1e3:.2f} ms at 989 TFLOP/s bf16 "
+            f"({need / ms / 1e9:.1f} TFLOP/s achieved, "
+            f"{100 * need / BF16_OPS_PER_S * 1e3 / ms:.1f}% of the bound); "
+            f"remat and the masked-out scores add {ran - need:.3e} "
+            f"({ran:.3e} executed, {ran / ms / 1e9:.1f} TFLOP/s)")
+
+
+def timed_steps(step, model, state, stream, steps: int, first: int = 0):
+    """ms, losses and grad norms of ``steps`` train steps on the stream's
+    batches ``first``, ``first + 1``, ..."""
+    import torch
+    ms, losses, norms = [], [], []
+    for i in range(first, first + steps):
+        batch = stream.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return ms, losses, norms
+
+
+def lm_train_full(card: str, dev: str = "cuda") -> dict:
+    """(a) ``make_train_step`` on yi_6b at its full config, then at its
+    4096 context (:func:`lm_train_long`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+    c = LM_TRAIN
+    cfg = get_config(c["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = AdamW()
+    state = opt.init(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    state_gb = (nbytes + sum(m.numel() * m.element_size()
+                             for m in (*state.mu.values(),
+                                       *state.nu.values()))) / 1e9
+    step = make_train_step(cfg, opt, accum=1, remat=True)
+    stream = TokenStream(cfg.vocab_size, seq_len=c["seq"],
+                         global_batch=c["batch"], seed=0, device=dev)
+    ms, losses, norms = timed_steps(step, model, state, stream, c["steps"])
+    check(all(map(math.isfinite, losses + norms)),
+          f"yi_6b train: loss {losses} / grad norm {norms} not finite")
+    check(finite_params(model), "yi_6b train: a parameter is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = stream.batch(c["steps"])
+    window = profile_window(lambda: step(model, state, batch), 1)
+    tokens = c["batch"] * c["seq"]
+    flops = train_flops(cfg, c["batch"], c["seq"])
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    out = dict(arch=cfg.name, params=cfg.param_count(), param_bytes=nbytes,
+               state_gb=state_gb, init_s=init_s, step_ms=ms,
+               ms_a_step=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               flops_a_step=flops["needed"],
+               flops_executed_a_step=flops["executed"],
+               bound_ms_a_step=flops["needed"] / BF16_OPS_PER_S * 1e3,
+               peak_gb=peak_gb, loss=losses, grad_norm=norms,
+               profiled=window)
+    print(f"LM train (a) {cfg.name} full config ({cfg.param_count() / 1e9:.3f}"
+          f" B params; params + moments {state_gb:.2f} GB, init {init_s:.1f}"
+          f" s): batch {c['batch']} x {c['seq']} tokens, AdamW bf16 "
+          f"moments, remat: {step_ms:.1f} ms a step (steps "
+          + ", ".join(f"{t:.1f}" for t in ms) + " ms; the first warms up), "
+          f"{out['tokens_per_s']:.0f} tokens/s; "
+          + flops_line(flops, step_ms) + f"; peak {peak_gb:.2f} GB; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses) + ", grad norm "
+          + ", ".join(f"{x:.3f}" for x in norms) + f"; one profiled step: "
+          f"{window['wall_ms_a_step']:.1f} ms wall, "
+          f"{window['device_busy_ms_a_step']:.1f} ms device busy "
+          f"({100 * window['busy_share']:.1f}%), "
+          f"{window['device_ops_a_step']:.0f} device ops [{card}]")
+    print("LM train (a) the profiled step's device time by kernel: "
+          + "; ".join(f"{r['name']} {r['ms']:.1f} ms x{r['count']:.0f}"
+                      for r in window["top"]))
+    out["long"] = lm_train_long(cfg, opt, model, state, step, card, dev)
+    return out
+
+
+def lm_train_long(cfg, opt, model, state, step, card: str,
+                  dev: str = "cuda") -> dict:
+    """(a) at 4096 context (``LM_TRAIN_LONG``) on (a)'s model and state:
+    the step's time, its model and update parts apart (the calls of
+    ``make_train_step``'s accum-1 branch), and the update's share
+    reckoned at train_4k's tokens a step (``TRAIN_4K_TOKENS``: that many
+    tokens / these microbatches of model time, one update; the
+    accumulation pass of accum > 1 left out)."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.transformer import KV_CHUNK
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import clip_by_global_norm
+    c = LM_TRAIN_LONG
+    stream = TokenStream(cfg.vocab_size, seq_len=c["seq"],
+                         global_batch=c["batch"], seed=0, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, norms = timed_steps(step, model, state, stream,
+                                    1 + c["steps"])
+    batch = stream.batch(1 + c["steps"])
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = api.loss_fn(cfg, model, batch["tokens"], batch["labels"],
+                          remat=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, gnorm = clip_by_global_norm({k: p.grad for k, p in params.items()},
+                                   1.0)
+    opt.update({k: p.grad for k, p in params.items()}, state, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for p in params.values():
+        p.grad = None
+    losses.append(float(loss.detach()))
+    norms.append(float(gnorm))
+    check(all(map(math.isfinite, losses + norms)),
+          f"yi_6b train at {c['seq']}: loss {losses} / grad norm {norms} "
+          "not finite")
+    check(finite_params(model), f"yi_6b train at {c['seq']}: a parameter "
+          "is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = stream.batch(2 + c["steps"])
+    window = profile_window(lambda: step(model, state, batch), 1)
+    tokens = c["batch"] * c["seq"]
+    flops = train_flops(cfg, c["batch"], c["seq"])
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    model_ms, update_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    micros = TRAIN_4K_TOKENS // tokens
+    share_4k = update_ms / (micros * model_ms + update_ms)
+    out = dict(batch=c["batch"], seq=c["seq"], step_ms=ms, ms_a_step=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3,
+               flops_a_step=flops["needed"],
+               flops_executed_a_step=flops["executed"],
+               bound_ms_a_step=flops["needed"] / BF16_OPS_PER_S * 1e3,
+               model_ms=model_ms, update_ms=update_ms,
+               update_share=update_ms / (model_ms + update_ms),
+               update_share_train_4k=share_4k, peak_gb=peak_gb,
+               loss=losses, grad_norm=norms, profiled=window)
+    print(f"LM train (a) {cfg.name} at its {c['seq']} context: batch "
+          f"{c['batch']} x {c['seq']} tokens ({-(-c['seq'] // KV_CHUNK)} key "
+          "chunks),"
+          f" accum 1: {step_ms:.1f} ms a step (steps "
+          + ", ".join(f"{t:.1f}" for t in ms) + " ms; the first warms up), "
+          f"{out['tokens_per_s']:.0f} tokens/s; " + flops_line(flops, step_ms)
+          + f"; one step in parts: loss + backward {model_ms:.1f} ms, clip "
+          f"+ AdamW {update_ms:.1f} ms ({100 * out['update_share']:.1f}%; "
+          f"at train_4k's {TRAIN_4K_TOKENS} tokens a step, {micros} such "
+          f"microbatches and one update, reckoned {100 * share_4k:.2f}%); "
+          f"peak {peak_gb:.2f} GB; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses) + "; one profiled step: "
+          f"{window['wall_ms_a_step']:.1f} ms wall, "
+          f"{window['device_busy_ms_a_step']:.1f} ms device busy "
+          f"({100 * window['busy_share']:.1f}%), "
+          f"{window['device_ops_a_step']:.0f} device ops [{card}]")
+    print(f"LM train (a) {c['seq']} context, the profiled step's device time"
+          " by kernel: "
+          + "; ".join(f"{r['name']} {r['ms']:.1f} ms x{r['count']:.0f}"
+                      for r in window["top"]))
+    return out
+
+
+def lm_train_arch(arch: str, dev: str = "cuda") -> dict:
+    """(b) one train step of an arch at full widths, one period deep (the
+    bf16 attention backward through ``_BmmF32``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import AdamW, clip_by_global_norm
+    from repro_torch.train.trainer import make_train_step
+    cfg = one_period(get_config(arch))
+    b, t = LM_TRAIN_CHECK["batch"], LM_TRAIN_CHECK["tokens"]
+    gen = torch.Generator(dev).manual_seed(4)
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init_params(cfg, gen, dev)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    full = 4 * nbytes <= TRAIN_STATE_SHARE * \
+        torch.cuda.get_device_properties(0).total_memory
+    x = lm_inputs(cfg, gen, b, t, dev)
+    y = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if full:
+        opt = AdamW()
+        state = opt.init(model)
+        m = make_train_step(cfg, opt)(model, state,
+                                      dict(tokens=x, labels=y))
+        loss, gnorm = m["loss"], m["grad_norm"]
+    else:
+        loss, _ = api.loss_fn(cfg, model, x, y, remat=True)
+        loss.backward()
+        _, gnorm = clip_by_global_norm(
+            {k: p.grad for k, p in model.named_parameters()}, 1.0)
+    torch.cuda.synchronize()
+    row = dict(arch=arch, n_layers=cfg.n_layers, params=cfg.param_count(),
+               state_gb=4 * nbytes / 1e9, adamw=full,
+               step_ms=(time.perf_counter() - t0) * 1e3,
+               loss=float(loss.detach()), grad_norm=float(gnorm),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+          f"{arch} train step: loss {row['loss']}, grad norm "
+          f"{row['grad_norm']}")
+    check(finite_params(model), f"{arch} train step: a parameter is not "
+          "finite")
+    print(f"LM train (b) {arch}: {cfg.n_layers} layers at full width "
+          f"({row['params'] / 1e9:.3f} B params), {b}x{t} tokens: "
+          + (f"train step {row['step_ms']:.1f} ms (first call)" if full
+             else f"loss + gradients + clip {row['step_ms']:.1f} ms (first "
+                  f"call; no AdamW: its state, 4 x {nbytes / 1e9:.1f} GB, "
+                  "exceeds the card)")
+          + f", loss {row['loss']:.4f}, grad norm {row['grad_norm']:.3f}, "
+          f"peak {row['peak_gb']:.2f} GB")
+    return row
+
+
+def lm_grads_card_vs_cpu(arch: str, dev: str = "cuda") -> float:
+    """(c) the reduced config's float32 gradients, the same weights and
+    batch on the CPU and the card: the largest leaf error over its scale."""
+    import copy
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import api
+    cfg = get_reduced(arch)
+    gen = torch.Generator().manual_seed(5)
+    cpu = api.init_params(cfg, gen, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    x = lm_inputs(cfg, gen, 2, 64, "cpu")
+    y = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    grads = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        loss, _ = api.loss_fn(cfg, model, x.to(d), y.to(d), remat=True)
+        loss.backward()
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    want, got = grads
+    top = max(float(g.abs().max()) for g in want.values())
+    err = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), GRAD_ZERO_FLOOR * top)
+        err = max(err, float((got[k] - w).abs().max()) / scale)
+    check(err <= LM_CARD_CPU_BOUND,
+          f"{arch}: gradients card vs CPU {err:.3e} > {LM_CARD_CPU_BOUND}")
+    return err
+
+
+def lm_restart(out_dir, dev: str = "cuda") -> dict:
+    """(d) reduced yi_6b through ``run_with_failures`` against an
+    uninterrupted run: the final parameters and moments bit-equal."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.data import TokenStream
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, run_with_failures
+    r = RESTART
+    cfg = get_reduced("yi_6b")
+    stream = TokenStream(cfg.vocab_size, seq_len=r["seq"],
+                         global_batch=r["batch"], device=dev)
+    opt = AdamW(lr=1e-3, warmup=5)
+    root = pathlib.Path(out_dir) / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    m1, s1, h1 = Trainer(cfg, opt, stream, str(root / "a"),
+                         ckpt_every=r["ckpt_every"], device=dev).run(r["steps"])
+    m2, s2, h2, attempts = run_with_failures(
+        Trainer(cfg, opt, stream, str(root / "b"),
+                ckpt_every=r["ckpt_every"], device=dev), r["steps"],
+        {r["fail"]})
+    secs = time.perf_counter() - t0
+    check(attempts == 2, f"restart: {attempts} attempts")
+    for (n, a), (_, b) in zip(m1.named_parameters(), m2.named_parameters()):
+        check(torch.equal(a, b), f"restart: parameter {n} not bit-equal")
+    for n in s1.mu:
+        check(torch.equal(s1.mu[n], s2.mu[n])
+              and torch.equal(s1.nu[n], s2.nu[n]),
+              f"restart: moments of {n} not bit-equal")
+    check(int(s1.step) == int(s2.step) == r["steps"], "restart: step count")
+    check(h2 == h1[-len(h2):], "restart: the resumed losses differ")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"LM train (d) restart: reduced yi_6b, {r['steps']} steps, a "
+          f"failure after step {r['fail']}, checkpoints every "
+          f"{r['ckpt_every']}: 2 attempts, parameters and moments bit-equal "
+          f"to the uninterrupted run ({secs:.1f} s both)")
+    return dict(attempts=attempts, seconds=secs, losses=h1)
+
+
+def psum_rank(g, e, device) -> tuple:
+    """(f) one of two gloo ranks sharing the card: ``compressed_psum`` of
+    its row over the ``pod`` axis."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import compressed_psum
+    mesh = make_mesh((tdist.get_world_size(),), ("pod",), backend="gloo",
+                     device=device)
+    r = tdist.get_rank()
+    return compressed_psum(g[r].to(mesh.device), e[r].to(mesh.device),
+                           mesh.axis("pod"))
+
+
+def lm_compressed_psum(out_dir, dev: str = "cuda") -> dict:
+    """(f) ``compressed_psum`` over two gloo ranks sharing the card."""
+    import shutil
+    import torch
+    from repro_torch.testing.ranks import run_ranks
+    gen = torch.Generator().manual_seed(6)
+    g = torch.randn(2, 1 << 16, generator=gen)
+    e = torch.randn(2, 1 << 16, generator=gen) * 1e-3
+    store = pathlib.Path(out_dir) / "train_psum"
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(psum_rank, 2, backend="gloo", device=dev,
+                      store_dir=store, args=(g, e, dev))
+    secs = time.perf_counter() - t0
+    shutil.rmtree(store, ignore_errors=True)
+    x = (g + e).to(dev)
+    # the same arithmetic in one process: a shared max scale, int8
+    # payloads summed exactly
+    scale = (x.abs().amax(dim=1).clamp_min(1e-12)
+             / torch.full((), 127.0, device=dev)).max()
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
+    want = (q.sum(0).float() * scale / torch.full((), 2.0, device=dev)).cpu()
+    mean = (g + e).mean(0)
+    rel = float((ranks[0][0] - mean).abs().max() / mean.abs().max())
+    check(torch.equal(ranks[0][0], ranks[1][0]),
+          "compressed_psum: the two ranks differ")
+    check(torch.equal(ranks[0][0], want),
+          "compressed_psum: not the shared-scale int8 mean")
+    check(rel < 0.05, f"compressed_psum: {rel:.3e} of the true mean")
+    print(f"LM train (f) compressed_psum, 2 gloo ranks on the card, "
+          f"{g.shape[1]} floats each: both ranks bit-equal to the shared-"
+          f"scale int8 mean, max err {rel:.3e} of the true mean (bound "
+          f"0.05), {secs:.1f} s with the spawn")
+    return dict(rel=rel, seconds=secs)
+
+
+def lm_sampler(dev: str = "cuda") -> dict:
+    """(e) ``ProbabilisticSampler`` on SAMPLER_POOL float32 probabilities:
+    one ``logcf`` launch (read by the caller around this call)."""
+    import numpy as np
+    from repro_torch.train.data import ProbabilisticSampler
+    probs = np.random.default_rng(11).uniform(0.5, 0.95, SAMPLER_POOL)
+    s = ProbabilisticSampler(probs, seed=0, device=dev)
+    return dict(sampler=s, pgf=s.batch_size_pgf())
+
+
+def lm_sampler_check(s, pgf, card: str) -> dict:
+    """(e) against the plain version on the card: the log CF within the
+    kernel phase's logcf bound, the PGF within it, the capacities."""
+    import torch
+    from repro_torch.core import poisson_binomial as pb
+    from repro_torch.kernels import pb_cf
+    from repro_torch.train.data import capacity_from
+    p = s.probs()
+    check(p.dtype == torch.float32 and p.is_cuda, "sampler: not float32 on "
+          "the card")
+    ones = torch.ones_like(p)
+    nf = p.shape[0] + 1
+    la, an = pb_cf.logcf(p, ones, num_freq=nf)        # a comparison launch
+    la_p, an_p = pb_cf.logcf_plain(p, ones, nf)
+    windows = (0, nf // 2 - 128, nf - 256)
+    rel = cf_gap(la, an, la_p, an_p, p, ones, nf, windows, 256)
+    # each against float64 terms: printed, not held (module docstring)
+    rel64 = (cf_window_errors(la, an, p, ones, nf, windows, 256)[2],
+             cf_window_errors(la_p, an_p, p, ones, nf, windows, 256)[2])
+    plain = pb.logcf_finalize(la_p, an_p)
+    f64 = pb.count_pgf(p.double()).coeffs           # float64: no kernel
+    pgf_err = float((pgf.coeffs - plain).abs().max())
+    caps = {eps: (s.capacity_for(eps), capacity_from(plain, eps),
+                  capacity_from(f64, eps))
+            for eps in (SAMPLER_EPS, *SAMPLER_EPS_SHOWN)}
+    check(rel <= CF_BOUND, f"sampler logcf vs plain: {rel:.3e} of "
+          "sum|term|")
+    check(pgf_err <= CF_BOUND, f"sampler PGF vs plain: {pgf_err:.3e}")
+    k, pl, _ = caps[SAMPLER_EPS]
+    check(k == pl, f"sampler capacity({SAMPLER_EPS}): kernel {k}, plain {pl}")
+    check(abs(float(pgf.mean()) - float(p.double().sum()))
+          <= 1e-3 * float(p.double().sum()), "sampler: E[batch]")
+    print(f"LM train (e) ProbabilisticSampler, {p.shape[0]} float32 "
+          f"probabilities on the card: 1 logcf launch; log CF max |kernel "
+          f"- plain| / sum|term| {rel:.3e}, PGF max |kernel - plain| "
+          f"{pgf_err:.3e} (bound {CF_BOUND}); against float64 terms kernel "
+          f"{rel64[0]:.3e}, plain {rel64[1]:.3e} (float32 grid of an odd "
+          f"N; not held); E[batch] {float(pgf.mean()):.2f}; capacity "
+          + "; ".join(f"eps {e:g}: kernel {c[0]}, plain {c[1]}, float64 "
+                      f"{c[2]}" for e, c in caps.items())
+          + f" (held at eps {SAMPLER_EPS:g}) [{card}]")
+    return dict(cf_rel=rel, cf_rel_float64=rel64, pgf_err=pgf_err,
+                capacities={str(e): c for e, c in caps.items()})
+
+
+def train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
+    """Phase 11: LM training (module docstring).  The launch counters are
+    reset before its path and read after it; the sampler's comparison
+    launches come after the reading."""
+    import shutil
+    import torch
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    report = dict(full=lm_train_full(card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["archs"] = []
+    for arch in ARCH_IDS:
+        report["archs"].append(lm_train_arch(arch, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["grads_card_vs_cpu"] = {a: lm_grads_card_vs_cpu(a, dev)
+                                   for a in ARCH_IDS}
+    print("LM train (c) reduced configs, float32, gradients card vs CPU, "
+          "max |card - CPU| over a leaf's scale: "
+          + ", ".join(f"{a} {e:.2e}" for a, e in
+                      report["grads_card_vs_cpu"].items())
+          + f" (bound {LM_CARD_CPU_BOUND})")
+    report["restart"] = lm_restart(out_dir, dev)
+    report["psum"] = lm_compressed_psum(out_dir, dev)
+    cli_dir = pathlib.Path(out_dir) / "train_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    check(launch_train.main(
+        ["--arch", "yi_6b", "--reduced", "--device", dev, "--steps", "4",
+         "--ckpt-dir", str(cli_dir)]) == 0, "launch.train.main")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    report["cli_s"] = time.perf_counter() - t0
+    print(f"LM train (g) launch.train.main --arch yi_6b --reduced --device "
+          f"cuda --steps 4: {report['cli_s']:.2f} s")
+    before = ops.launches()
+    sampled = lm_sampler(dev)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    check(before == {k: 0 for k in launches},
+          f"LM training before the sampler launched {before}")
+    check(launches == dict(before, logcf=1),
+          f"the sampler's launches: {launches}")
+    report["launches"] = launches
+    report["sampler"] = lm_sampler_check(sampled["sampler"], sampled["pgf"],
+                                         card)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"training-path launches: {launches}; phase 11 took "
+          f"{report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2880,12 +3474,17 @@ def main() -> int:
     report["lm"] = lm_phase(card)
     torch.cuda.empty_cache()
 
+    report["train"] = train_phase(card, out_dir)
+    torch.cuda.empty_cache()
+
     # launches: the runs of the TPC-H path, the value-layer path, the
-    # streamed path, the mesh path (every rank) and the serving path.
+    # streamed path, the mesh path (every rank), the serving path and the
+    # training path.
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
     serving_launches = report["serving"]["launches"]
+    train_launches = report["train"]["launches"]
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
                  "group_cumulant_sums", "polymul"):
@@ -2894,7 +3493,7 @@ def main() -> int:
                             replaces=REPLACES[name],
                             launches=launches[name] + value_launches[name]
                             + stream_launches[name] + mesh_launches[name]
-                            + serving_launches[name],
+                            + serving_launches[name] + train_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -6,14 +6,16 @@
     moe.py          top-k expert routing with static capacity
     rglru.py        RecurrentGemma RG-LRU recurrent block
     rwkv6.py        RWKV-6 chunked WKV time-mix
-    api.py          init/forward/loss/prefill/decode over any ModelConfig
+    api.py          init/forward/loss (per-period remat)/prefill/decode
+                    over any ModelConfig
     frontends.py    [vlm]/[audio] embedding stubs
-    convert.py      the JAX package's parameter tree -> a port model
+    convert.py      the JAX package's trees <-> a port model's names
 
 Plain PyTorch on any device: no custom kernel lies on this path (the JAX
-package computes it in plain ``jnp`` too).  The reference's sharding
-hooks and ``runmode.py`` (XLA cost calibration) have no counterpart yet
-(ROADMAP Queue 1 item 6c).
+package computes it in plain ``jnp`` too); on the card the attention
+products' gradient is ``transformer._BmmF32``'s.  The reference's
+sharding hooks and ``runmode.py`` (XLA cost calibration) have no
+counterpart yet (ROADMAP Queue 1 item 6c).
 """
 from . import (api, convert, frontends, layers, mlp, moe, rglru, rwkv6,
                transformer)

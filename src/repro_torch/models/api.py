@@ -3,7 +3,8 @@
     init_params(cfg, generator, device)   the model (:class:`Model`), random
     init_cache(cfg, batch, max_len)       decode state (KV / ring / recurrent)
     forward(cfg, model, tokens, ..)       logits, cache, MoE aux loss
-    loss_fn(cfg, model, tokens, labels)   token cross-entropy (+ MoE aux)
+    loss_fn(cfg, model, tokens, labels)   token cross-entropy (+ MoE aux),
+                                          per-period remat for training
     prefill / decode_step                 serving entry points
 
 Layers run in order: layer ``i < n_periods * len(pattern)`` is pattern
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import resolve_device
 from . import layers as L
@@ -129,9 +131,32 @@ class Model(nn.Module):
                 out.append(cache["tail"][str(i - n_body)])
         return out
 
-    def forward(self, tokens, cache=None, cache_len: int = 0):
+    def segments(self) -> list:
+        """The layers in the groups one remat checkpoint covers: each
+        period's blocks, then each tail layer alone (the reference's
+        scanned period body and its per-layer tail checkpoints)."""
+        p = len(self.cfg.pattern)
+        n_body = p * self.cfg.n_periods
+        return [self.layers[i:i + p] for i in range(0, n_body, p)] \
+            + [self.layers[i:i + 1] for i in range(n_body, len(self.layers))]
+
+    @staticmethod
+    def _run(blocks, x, positions, aux, caches=None, cache_len: int = 0):
+        """``blocks`` in order; returns (x, aux + their aux losses)."""
+        for j, blk in enumerate(blocks):
+            x, a = blk(x, positions, None if caches is None else caches[j],
+                       cache_len)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def forward(self, tokens, cache=None, cache_len: int = 0,
+                remat: bool = False):
         """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
-        cache (updated in place) or None, aux loss)."""
+        cache (updated in place) or None, aux loss).  ``remat`` (without
+        a cache) recomputes each segment's activations in the backward
+        instead of keeping them (``torch.utils.checkpoint``); the values
+        and gradients are the same bits either way."""
         cfg = self.cfg
         if cfg.embedding_inputs:
             x = tokens.to(cfg.torch_dtype)
@@ -140,13 +165,20 @@ class Model(nn.Module):
         t = x.shape[1]
         positions = torch.arange(cache_len, cache_len + t, dtype=torch.int32,
                                  device=x.device)
-        views = [None] * len(self.layers) if cache is None \
-            else self.layer_caches(cache)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk, c in zip(self.layers, views):
-            x, a = blk(x, positions, c, cache_len)
-            if a is not None:
-                aux = aux + a
+        if cache is not None:
+            x, aux = self._run(self.layers, x, positions, aux,
+                               self.layer_caches(cache), cache_len)
+        else:
+            for seg in self.segments():
+                if remat:
+                    # the blocks draw no random numbers: no RNG state to
+                    # stash for the recomputation
+                    x, aux = checkpoint(self._run, seg, x, positions, aux,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+                else:
+                    x, aux = self._run(seg, x, positions, aux)
         x = self.final_norm(x)
         if self.head is not None:
             logits = self.head(x)
@@ -198,15 +230,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 # --------------------------------------------------------------- forward
-def forward(cfg, model, tokens, *, cache=None, cache_len: int = 0):
+def forward(cfg, model, tokens, *, cache=None, cache_len: int = 0,
+            remat: bool = False):
     """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
-    cache or None, aux_loss); a given cache is updated in place."""
+    cache or None, aux_loss); a given cache is updated in place.
+    ``remat``: see :meth:`Model.forward`."""
     _check(cfg, model)
-    return model(tokens, cache=cache, cache_len=cache_len)
+    return model(tokens, cache=cache, cache_len=cache_len, remat=remat)
 
 
-def loss_fn(cfg, model, tokens, labels):
-    logits, _, aux = forward(cfg, model, tokens)
+def loss_fn(cfg, model, tokens, labels, *, remat: bool = True):
+    """Mean token cross-entropy + 0.01 x the MoE aux loss, and
+    dict(ce=, aux=); differentiate it with ``loss.backward()``.  ``remat``
+    checkpoints each period's blocks and each tail layer (the reference's
+    per-period ``jax.checkpoint``)."""
+    logits, _, aux = forward(cfg, model, tokens, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -14,8 +14,12 @@ returns a :class:`~repro_torch.models.api.Model` with the same weights:
   reference's (in, out)), an ``nn.Embedding`` and a plain parameter the
   array as it is.
 
-Decode caches need no carry: both packages start them at zeros.  Nothing
-here imports JAX: the caller converts the tree.
+The same mapping carries trees of the parameters' shape both ways:
+:func:`state_from_reference` (e.g. an optimizer's moments,
+:func:`opt_state_from_reference`) and :func:`to_reference` (e.g. the
+port's gradients, for a comparison in the reference's layout).  Decode
+caches need no carry: both packages start them at zeros.  Nothing here
+imports JAX: the caller converts the tree.
 """
 from __future__ import annotations
 
@@ -35,24 +39,90 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _state(module: nn.Module, tree: dict, prefix: str, out: dict,
-           period=None) -> None:
-    """Add ``tree``'s leaves (row ``period`` of each, if given) to the
-    state dict ``out`` under ``module``'s names."""
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy (bfloat16 as float32: numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _walk(module: nn.Module, tree: dict, prefix: str, path: tuple,
+          period=None):
+    """(reference path, period row or None, state-dict name, transposed)
+    of every leaf of ``tree`` under ``module``."""
     names = getattr(module, "REF_NAMES", {})
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
-            _state(getattr(module, key), leaf, f"{prefix}{key}.", out, period)
+            yield from _walk(getattr(module, key), leaf, f"{prefix}{key}.",
+                             path + (key,), period)
             continue
-        arr = leaf if period is None else np.asarray(leaf)[period]
         target = names.get(key, key)
         obj = None if "." in target else getattr(module, target)
-        if isinstance(obj, nn.Linear):
-            out[f"{prefix}{target}.weight"] = _tensor(arr).T.contiguous()
-        elif isinstance(obj, nn.Embedding):
-            out[f"{prefix}{target}.weight"] = _tensor(arr)
+        if isinstance(obj, (nn.Linear, nn.Embedding)):
+            yield (path + (key,), period, f"{prefix}{target}.weight",
+                   isinstance(obj, nn.Linear))
         else:
-            out[f"{prefix}{target}"] = _tensor(arr)
+            yield path + (key,), period, f"{prefix}{target}", False
+
+
+def _pairs(cfg, tree: dict):
+    """:func:`_walk` over a whole reference tree (parameters, or a tree of
+    their shape such as gradients or moments): period ``p`` of
+    ``blocks[str(j)]`` is layer ``j + p * len(pattern)``, ``tail[str(j)]``
+    the ``j``-th layer after the periods."""
+    model = Model(cfg, device="meta")
+    p = len(cfg.pattern)
+    for j in range(p):
+        for period in range(cfg.n_periods):
+            i = j + period * p
+            yield from _walk(model.layers[i], tree["blocks"][str(j)],
+                             f"layers.{i}.", ("blocks", str(j)), period)
+    for j in range(len(cfg.tail_pattern)):
+        i = p * cfg.n_periods + j
+        yield from _walk(model.layers[i], tree["tail"][str(j)],
+                         f"layers.{i}.", ("tail", str(j)))
+    yield from _walk(model, {k: v for k, v in tree.items()
+                             if k not in ("blocks", "tail")}, "", ())
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def state_from_reference(cfg, tree: dict) -> dict:
+    """A reference-layout tree (numpy) as {state-dict name: CPU tensor}
+    of a ``cfg`` model: a Linear's leaf transposed, a stacked leaf's
+    row."""
+    out = {}
+    for path, period, name, transposed in _pairs(cfg, tree):
+        arr = _get(tree, path)
+        if period is not None:
+            arr = np.asarray(arr)[period]
+        t = _tensor(arr)
+        out[name] = t.T.contiguous() if transposed else t
+    return out
+
+
+def to_reference(cfg, tensors: dict, like: dict) -> dict:
+    """The inverse of :func:`state_from_reference`: {state-dict name:
+    tensor} (e.g. the gradients) laid out as the reference tree ``like``
+    (numpy; bfloat16 comes back as float32)."""
+    out: dict = {}
+    for path, period, name, transposed in _pairs(cfg, like):
+        t = tensors[name]
+        arr = _numpy(t.T if transposed else t)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if period is None:
+            node[path[-1]] = arr
+        else:
+            if path[-1] not in node:
+                node[path[-1]] = np.empty(
+                    (cfg.n_periods,) + arr.shape, arr.dtype)
+            node[path[-1]][period] = arr
+    return out
 
 
 def carry(module: nn.Module, tree: dict) -> nn.Module:
@@ -60,7 +130,9 @@ def carry(module: nn.Module, tree: dict) -> nn.Module:
     ``module`` (built on any device, ``meta`` included); every parameter
     must be matched, shapes and all.  Returns the module, on the CPU."""
     sd = {}
-    _state(module, tree, "", sd)
+    for path, _, name, transposed in _walk(module, tree, "", ()):
+        t = _tensor(_get(tree, path))
+        sd[name] = t.T.contiguous() if transposed else t
     module.load_state_dict(sd, strict=True, assign=True)
     return module
 
@@ -69,17 +141,24 @@ def from_reference(cfg, params: dict, device="cuda") -> Model:
     """The port's model holding the reference tree ``params`` (numpy)."""
     dev = resolve_device(device)
     model = Model(cfg, device="meta")
-    sd = {}
-    p = len(cfg.pattern)
-    for j in range(p):
-        for period in range(cfg.n_periods):
-            i = j + period * p
-            _state(model.layers[i], params["blocks"][str(j)], f"layers.{i}.",
-                   sd, period)
-    for j in range(len(cfg.tail_pattern)):
-        i = p * cfg.n_periods + j
-        _state(model.layers[i], params["tail"][str(j)], f"layers.{i}.", sd)
-    _state(model, {k: v for k, v in params.items()
-                   if k not in ("blocks", "tail")}, "", sd)
-    model.load_state_dict(sd, strict=True, assign=True)
+    model.load_state_dict(state_from_reference(cfg, params), strict=True,
+                          assign=True)
     return model.to(dev)
+
+
+def opt_state_from_reference(cfg, state, model: Model):
+    """A reference ``AdamWState`` (its leaves as numpy:
+    ``jax.tree.map(np.asarray, state)``) as the port's
+    :class:`~repro_torch.train.optimizer.AdamWState` for ``model``: the
+    moments by parameter name, through the leaf mapping of
+    :func:`from_reference`, on the model's device in their own dtype."""
+    from ..train.optimizer import AdamWState
+    dev = next(model.parameters()).device
+
+    def moments(tree):
+        return {k: v.to(dev) for k, v in
+                state_from_reference(cfg, tree).items()}
+    return AdamWState(
+        torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                     device=dev),
+        moments(state.mu), moments(state.nu))

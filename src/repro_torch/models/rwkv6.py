@@ -120,18 +120,24 @@ def chunked_wkv(r, k, v, w, u, s0):
     t = r.shape[1]
     mask = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool,
                                  device=r.device), diagonal=-1)
+    # floors as tensors for torch.maximum, whose gradient splits a tie
+    # in half as the reference's jnp.maximum does (clamp_min passes all
+    # of it): a cumulative decay lands on -30 exactly where a channel
+    # repeats one decay value
+    tiny, floor = (torch.full((), c, dtype=w.dtype, device=w.device)
+                   for c in (1e-12, LOG_DECAY_FLOOR))
     s = s0
     ys = []
     for c0 in range(0, t, CHUNK):
         rr, kk, vv, ww = (a[:, c0:c0 + CHUNK] for a in (r, k, v, w))
-        logw = torch.log(torch.clamp_min(ww, 1e-12))
+        logw = torch.log(torch.maximum(ww, tiny))
         cum = torch.cumsum(logw, dim=1)            # log prod_{<=i} w
         cum_excl = cum - logw                      # log prod_{<i}  w
         # clamp the *cumulative* decay: a channel that decays below e^-30
         # inside one chunk has washed out; clamping keeps the factored
         # exp(+/-cum) terms inside f32 range
-        cum = torch.clamp_min(cum, LOG_DECAY_FLOOR)
-        cum_excl = torch.clamp_min(cum_excl, LOG_DECAY_FLOOR)
+        cum = torch.maximum(cum, floor)
+        cum_excl = torch.maximum(cum_excl, floor)
         # inter-chunk: y_i += r_i diag(prod_{<i} w) S
         ri = rr * torch.exp(cum_excl)              # (B, C, H, K)
         y = torch.einsum("bihk,bhkv->bihv", ri, s)

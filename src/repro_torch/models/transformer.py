@@ -13,8 +13,10 @@ Without a cache the softmax streams over 1,024-key chunks with a running
 exists beyond (Tq, chunk); a decode step attends to its cache in one
 shot.  The score and value products take their inputs in the residual
 dtype and accumulate and return float32 (the reference's
-``preferred_element_type``); masked scores are ``NEG_INF``, not ``-inf``.
-The cache is written in place.
+``preferred_element_type``); on the card their gradient is
+:class:`_BmmF32`'s, whose two backward products take the same form.
+Masked scores are ``NEG_INF``, not ``-inf``.  The cache is written in
+place.
 """
 from __future__ import annotations
 
@@ -27,14 +29,47 @@ NEG_INF = -1e30
 KV_CHUNK = 1024
 
 
+def _mm_f32(a, b):
+    """a @ b (batched) in the inputs' dtype, float32 out with float32
+    accumulation (``aten::bmm.dtype``: the card and ``meta`` only)."""
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _BmmF32(torch.autograd.Function):
+    """:func:`_mm_f32` with a gradient (``aten::bmm.dtype`` has none): the
+    two products of the backward take the float32 cotangent rounded to
+    the inputs' dtype, accumulate in float32 as the forward does, and
+    return the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm_f32(g, b.transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a.transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a, b):
     """a @ b (batched), float32 out with float32 accumulation; the inputs
-    stay in their dtype where the device multiplies them so."""
+    stay in their dtype where the device multiplies them so (the CPU
+    upcasts them).  Only a product that autograd records goes through
+    :class:`_BmmF32`: serving calls the op directly."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    if a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _BmmF32.apply(a, b)
+    return _mm_f32(a, b)
 
 
 def _scores(qf, kch):
