@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's resident TPC-H path, its streamed
 (out-of-core) path, its value layer, its multi-rank path, its serving
-layer, its language-model serving and its language-model training on
-one NVIDIA card.
+layer, its language-model serving, its language-model training and its
+language-model mesh on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Eleven phases, each of which raises on a failed check (exit code != 0):
+Twelve phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -150,6 +150,22 @@ Eleven phases, each of which raises on a failed check (exit code != 0):
    Kernel and plain share the float32 frequency grid, so they are held to
    each other; against float64 terms each is printed (at N = 4,097 with
    p in [0.5, 0.95] the float32 grid alone errs by ~1.7e-4 of sum |term|).
+12. LM mesh (``sharding.Rules``, ``sharding.ShardedModel``, the sharded
+   ``make_train_step``, ``checkpoint`` under a mesh, ``train.elastic``):
+   four gloo ranks sharing the card, each resetting its launch counters
+   (all must stay 0).  (a) yi_6b at its full widths cut to 2 layers,
+   bf16, 3 steps of 4 x 512 tokens (AdamW, remat) on a (2, 2) ("data",
+   "model") mesh, against the same model and batches on one rank (rank
+   0, before the mesh runs): loss within ``MESH_LOSS_RTOL``, grad norm
+   within ``MESH_NORM_RTOL``; ms a step, peak memory a rank, bytes
+   received a step by collective kind.  (b) olmoe_1b_7b the same way (64
+   experts, 8 active, split over the model axis, routing global): the
+   same bounds, and each layer's dropped (token, choice) pairs equal to
+   one rank's.  (c) (a) again: every rank's parameter blocks bit-equal.
+   (d) (a)'s state after step 2, saved under (2, 2) (full arrays),
+   restored under (4, 1) with ``restore(shardings=)`` and resharded back
+   with ``elastic.reshard``: every leaf bit-equal to the saved block; a
+   step after it bit-equal to (a)'s third.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -3338,6 +3354,316 @@ def train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
     return report
 
 
+# ------------------------------------------------------ phase 12: LM mesh
+#: Phase 12: yi_6b (a) and olmoe_1b_7b (b) at their full widths cut to
+#: ``layers`` layers, bf16, ``batch`` x ``seq`` tokens, ``steps`` steps
+#: of ``make_train_step`` (AdamW, remat) on a ``shape`` mesh of gloo ranks
+#: sharing the card; (d) saves after step ``save_after`` and restores
+#: under ``restore_shape``.
+LM_MESH = dict(arch="yi_6b", moe="olmoe_1b_7b", layers=2, batch=4, seq=512,
+               steps=3, shape=(2, 2), restore_shape=(4, 1), save_after=2)
+#: (a), (b): the mesh's loss and grad norm against one rank's on the card,
+#: relative (bf16: the rows' sums run in another order on the mesh)
+MESH_LOSS_RTOL = 1e-2
+MESH_NORM_RTOL = 2e-2
+
+
+def mesh_cfg(name: str):
+    """``name``'s published config cut to LM_MESH's depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), n_layers=LM_MESH["layers"])
+
+
+def mesh_stream(cfg, dev):
+    from repro_torch.train.data import TokenStream
+    c = LM_MESH
+    return TokenStream(cfg.vocab_size, seq_len=c["seq"],
+                       global_batch=c["batch"], seed=0, device=dev)
+
+
+def mesh_one_rank(cfg, dev) -> dict:
+    """The same model (seed 0 on the card), batches and step on one rank:
+    ms a step, losses, grad norms, each MoE layer's drops after the first
+    step."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+    model = api.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = AdamW()
+    state = opt.init(model)
+    step = make_train_step(cfg, opt, accum=1, remat=True)
+    stream = mesh_stream(cfg, dev)
+    out = dict(ms=[], loss=[], grad_norm=[], drops=None)
+    for i in range(LM_MESH["steps"]):
+        batch = stream.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if out["drops"] is None and cfg.n_experts:
+            out["drops"] = [int(b.ffn.dropped) for b in model.layers]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_run(cfg, rules, dev, on_step=None) -> dict:
+    """The sharded step on ``rules``' mesh from the same model: ms a step
+    (every rank synchronised and at a barrier before each), losses, grad
+    norms, drops after the first step, bytes received a step by
+    collective kind; ``on_step(i, model, state)`` after step i."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import sharding
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import make_train_step
+    sm = sharding.ShardedModel(
+        api.init_params(cfg, torch.Generator(dev).manual_seed(0), dev), rules)
+    opt = AdamW()
+    state = opt.init(sm)
+    step = make_train_step(cfg, opt, accum=1, remat=True)
+    stream = mesh_stream(cfg, dev)
+    out = dict(ms=[], loss=[], grad_norm=[], drops=None, bytes=[])
+    with rules.activate():
+        for i in range(LM_MESH["steps"]):
+            batch = stream.batch(i)
+            torch.cuda.synchronize()
+            tdist.barrier()
+            sharding.reset_collective_bytes()
+            t0 = time.perf_counter()
+            m = step(sm, state, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["bytes"].append(dict(sharding.COLLECTIVE_BYTES))
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            if out["drops"] is None and cfg.n_experts:
+                out["drops"] = [int(b.ffn.dropped) for b in sm.work.layers]
+            if on_step is not None:
+                on_step(i, sm, state)
+    out.update(model=sm, state=state, step=step, stream=stream)
+    return out
+
+
+def mesh_train_rank(out_dir, dev) -> dict:
+    """One of phase 12's four gloo ranks sharing the card (module
+    docstring); rank 0 also runs the one-rank references.  Returns plain
+    numbers and flags."""
+    import shutil
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import elastic
+    c = LM_MESH
+    rank = tdist.get_rank()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(c["shape"], ("data", "model"), backend="gloo",
+                     device=dev)
+    other = make_mesh(c["restore_shape"], ("data", "model"), backend="gloo",
+                      device=dev)
+    rules = sharding.Rules(mesh, fsdp=True)
+    ckdir = pathlib.Path(out_dir) / "mesh_ckpt"
+    out = dict(rank=rank, coords=mesh.coords)
+
+    # (a) yi_6b; (c) again; (d) the checkpoint of (a) after save_after
+    cfg = mesh_cfg(c["arch"])
+    out["one"] = mesh_one_rank(cfg, dev) if rank == 0 else None
+    tdist.barrier()
+    saved: dict = {}
+
+    def save(i, sm, state):
+        if i + 1 != c["save_after"]:
+            return
+        tree = sm.tree(state)
+        saved.update({k: v.local.clone()
+                      for k, v in ck.flatten(tree).items()})
+        if rank == 0:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        ck.save(str(ckdir), i + 1, tree)
+        out["save_s"] = time.perf_counter() - t0
+    a = mesh_run(cfg, rules, dev, on_step=save)
+    final = {n: t.clone() for n, t in a["model"].params.items()}
+    out["a"] = {k: a[k] for k in ("ms", "loss", "grad_norm", "bytes")}
+    out["a"]["shard_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in final.values())
+    out["a"]["first_fit"] = rules.layouts.get("first_fit")
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = mesh_run(cfg, rules, dev)
+    out["rerun_equal"] = b["loss"] == out["a"]["loss"] and all(
+        torch.equal(final[n], b["model"].params[n]) for n in final)
+    t0 = time.perf_counter()
+    placed, _ = ck.restore(str(ckdir), c["save_after"],
+                           b["model"].tree(b["state"]),
+                           shardings=sharding.state_shardings(
+                               sharding.Rules(other, fsdp=True), cfg))
+    back = elastic.reshard(placed, rules)
+    out["restore_s"] = time.perf_counter() - t0
+    flat = ck.flatten(back)
+    out["restored_leaves"] = len(saved)
+    out["restored_equal"] = flat.keys() == saved.keys() and all(
+        torch.equal(flat[k].local, saved[k]) for k in saved)
+    b["model"].load_(back, b["state"])
+    with rules.activate():
+        m = b["step"](b["model"], b["state"],
+                      b["stream"].batch(c["save_after"]))
+    out["resumed_equal"] = float(m["loss"]) == out["a"]["loss"][
+        c["save_after"]] and all(torch.equal(final[n], b["model"].params[n])
+                                 for n in final)
+    del b, placed, back, flat, final, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # (b) olmoe_1b_7b: experts over the model axis, routing global
+    cfg = mesh_cfg(c["moe"])
+    out["moe_one"] = mesh_one_rank(cfg, dev) if rank == 0 else None
+    tdist.barrier()
+    r = mesh_run(cfg, rules, dev)
+    out["b"] = {k: r[k] for k in ("ms", "loss", "grad_norm", "bytes",
+                                  "drops")}
+    out["b"]["shard_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in r["model"].params.values())
+    out["b"]["finite"] = all(bool(torch.isfinite(t).all())
+                             for t in r["model"].params.values())
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = ops.launches()
+    return out
+
+
+def mesh_close(what: str, mesh: dict, one: dict) -> dict:
+    """(a), (b): every step's loss and grad norm against one rank's."""
+    err = dict(loss=max(abs(x - y) / abs(y) for x, y in
+                        zip(mesh["loss"], one["loss"])),
+               grad_norm=max(abs(x - y) / abs(y) for x, y in
+                             zip(mesh["grad_norm"], one["grad_norm"])))
+    check(all(map(math.isfinite, mesh["loss"] + mesh["grad_norm"])),
+          f"{what}: loss / grad norm not finite")
+    check(err["loss"] <= MESH_LOSS_RTOL,
+          f"{what}: loss {mesh['loss']} against one rank's {one['loss']}")
+    check(err["grad_norm"] <= MESH_NORM_RTOL,
+          f"{what}: grad norm {mesh['grad_norm']} against one rank's "
+          f"{one['grad_norm']}")
+    return err
+
+
+def mesh_line(what: str, cfg, ranks: list, key: str, one: dict,
+              err: dict, card: str) -> dict:
+    ms = [max(r[key]["ms"][i] for r in ranks)
+          for i in range(LM_MESH["steps"])]
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    kinds = sorted({k for r in ranks for b in r[key]["bytes"] for k in b})
+    per_step = {k: sum(b.get(k, 0) for r in ranks for b in r[key]["bytes"])
+                / LM_MESH["steps"] for k in kinds}
+    one_ms = sum(one["ms"][1:]) / len(one["ms"][1:])
+    c = LM_MESH
+    print(f"LM mesh {what} {cfg.name} at full widths, {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), bf16, "
+          f"{c['batch']} x {c['seq']} tokens, {c['shape']} "
+          f"('data', 'model') mesh of 4 gloo ranks on one card: "
+          f"{step_ms:.1f} ms a step (slowest rank; steps "
+          + ", ".join(f"{t:.1f}" for t in ms) + f"; one rank {one_ms:.1f} "
+          f"ms), blocks {ranks[0][key]['shard_bytes'] / 1e9:.3f} GB a rank; "
+          "bytes received a step, all ranks: "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in per_step.items())
+          + "; loss " + " -> ".join(f"{x:.4f}" for x in ranks[0][key]["loss"])
+          + " (one rank " + " -> ".join(f"{x:.4f}" for x in one["loss"])
+          + f"), max rel err loss {err['loss']:.2e} (bound {MESH_LOSS_RTOL}),"
+          f" grad norm {err['grad_norm']:.2e} (bound {MESH_NORM_RTOL}) "
+          f"[{card}]")
+    return dict(step_ms=ms, ms_a_step=step_ms, one_rank_ms=one["ms"],
+                bytes_a_step=per_step, loss=ranks[0][key]["loss"],
+                grad_norm=ranks[0][key]["grad_norm"], one=one, err=err)
+
+
+def mesh_train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
+    """Phase 12: the LM mesh (module docstring).  The launch counters of
+    each rank are reset at its start and read at its end."""
+    import shutil
+    from repro_torch.testing.ranks import run_ranks
+    t_phase = time.perf_counter()
+    store = pathlib.Path(out_dir) / "mesh_train"
+    shutil.rmtree(store, ignore_errors=True)
+    ranks = run_ranks(mesh_train_rank, 4, backend="gloo", device=dev,
+                      store_dir=store, args=(str(out_dir), dev),
+                      timeout=900)
+    shutil.rmtree(store, ignore_errors=True)
+    one, moe_one = ranks[0]["one"], ranks[0]["moe_one"]
+    for key in ("a", "b"):
+        for r in ranks[1:]:
+            check(r[key]["loss"] == ranks[0][key]["loss"]
+                  and r[key]["grad_norm"] == ranks[0][key]["grad_norm"],
+                  f"LM mesh ({key}): the ranks report other metrics")
+    report = dict(
+        a=mesh_line("(a)", mesh_cfg(LM_MESH["arch"]), ranks, "a", one,
+                    mesh_close("LM mesh (a)", ranks[0]["a"], one), card))
+    report["a"]["first_fit"] = ranks[0]["a"]["first_fit"]
+    report["b"] = mesh_line("(b)", mesh_cfg(LM_MESH["moe"]), ranks, "b",
+                            moe_one, mesh_close("LM mesh (b)", ranks[0]["b"],
+                                                moe_one), card)
+    drops = [r["b"]["drops"] for r in ranks]
+    check(all(d == moe_one["drops"] for d in drops),
+          f"LM mesh (b): dropped tokens {drops} against one rank's "
+          f"{moe_one['drops']}")
+    check(all(r["b"]["finite"] for r in ranks),
+          "LM mesh (b): a parameter is not finite")
+    report["b"]["drops"] = moe_one["drops"]
+    print(f"LM mesh (b) dropped (token, choice) pairs after the first step, "
+          f"by layer: {drops[0]} on every rank, one rank {moe_one['drops']}"
+          f" (equal: the routing is global)")
+    check(all(r["rerun_equal"] for r in ranks),
+          "LM mesh (c): a rerun of (a) is not bit-equal")
+    print("LM mesh (c) (a) again on the mesh: losses, grad norms and every "
+          "rank's parameter blocks bit-equal")
+    check(all(r["restored_equal"] for r in ranks),
+          "LM mesh (d): a restored leaf differs from the saved one")
+    check(all(r["resumed_equal"] for r in ranks),
+          "LM mesh (d): step 3 after the restore differs")
+    print(f"LM mesh (d) (a)'s state after step {LM_MESH['save_after']} saved "
+          f"under {LM_MESH['shape']} (full arrays, "
+          f"{ranks[0]['save_s']:.1f} s), restored under "
+          f"{LM_MESH['restore_shape']} and resharded back "
+          f"({max(r['restore_s'] for r in ranks):.1f} s): all "
+          f"{ranks[0]['restored_leaves']} leaves bit-equal on every rank; "
+          f"step {LM_MESH['save_after'] + 1} after it bit-equal to (a)'s")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    check(launches == {k: 0 for k in launches},
+          f"LM mesh launched kernels: {launches}")
+    peaks = [r["peak_gb"] for r in ranks]
+    report.update(
+        peak_gb=peaks, launches=launches,
+        save_s=ranks[0]["save_s"],
+        restore_s=max(r["restore_s"] for r in ranks),
+        seconds=time.perf_counter() - t_phase)
+    print(f"LM mesh: peak device memory a rank "
+          + ", ".join(f"{p:.2f}" for p in peaks) + f" GB (rank 0 ran the "
+          f"one-rank references too); launches {launches}; phase 12 took "
+          f"{report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3477,14 +3803,17 @@ def main() -> int:
     report["train"] = train_phase(card, out_dir)
     torch.cuda.empty_cache()
 
+    report["mesh_train"] = mesh_train_phase(card, out_dir)
+
     # launches: the runs of the TPC-H path, the value-layer path, the
-    # streamed path, the mesh path (every rank), the serving path and the
-    # training path.
+    # streamed path, the mesh path (every rank), the serving path, the
+    # training path and the LM mesh (every rank).
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
     serving_launches = report["serving"]["launches"]
     train_launches = report["train"]["launches"]
+    lm_mesh_launches = report["mesh_train"]["launches"]
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
                  "group_cumulant_sums", "polymul"):
@@ -3493,7 +3822,8 @@ def main() -> int:
                             replaces=REPLACES[name],
                             launches=launches[name] + value_launches[name]
                             + stream_launches[name] + mesh_launches[name]
-                            + serving_launches[name] + train_launches[name],
+                            + serving_launches[name] + train_launches[name]
+                            + lm_mesh_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -637,3 +637,32 @@ def partitioned_merge(udas: dict, parts: list, ax,
         else:
             out[name] = u.reduce_data(folded, ax)
     return out
+
+
+def shard_columns(mesh, arrays, data_axes: Sequence[str] = ("data",)):
+    """This rank's row block of each column (host arrays or tensors): the
+    rows split over the data axes (``pod`` first, then ``data_axes``) in
+    row-major order of the rank's coordinates, as the reference's tuple
+    sharding lays them out; each block on the mesh's device."""
+    names = _data_axes(mesh, data_axes)
+    ax = mesh.axis(names) if names else None
+    shards = ax.size if ax is not None else 1
+    out = []
+    for a in arrays:
+        t = torch.as_tensor(a)
+        if t.shape[0] % shards:
+            raise ValueError(f"{t.shape[0]} rows do not split over "
+                             f"{shards} data shards (pad_for)")
+        n = t.shape[0] // shards
+        r = data_rank(ax)
+        out.append(t[r * n:(r + 1) * n].to(mesh.device))
+    return tuple(out)
+
+
+def input_specs(*, n_tuples: int, dtype=torch.float32) -> dict:
+    """Shape / dtype stand-ins (``meta`` tensors) for the distributed query
+    step's inputs."""
+    def meta(dt):
+        return torch.empty((n_tuples,), dtype=dt, device="meta")
+    return dict(probs=meta(dtype), values=meta(dtype),
+                gids=meta(torch.int32))

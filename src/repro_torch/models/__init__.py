@@ -13,9 +13,10 @@
 
 Plain PyTorch on any device: no custom kernel lies on this path (the JAX
 package computes it in plain ``jnp`` too); on the card the attention
-products' gradient is ``transformer._BmmF32``'s.  The reference's
-sharding hooks and ``runmode.py`` (XLA cost calibration) have no
-counterpart yet (ROADMAP Queue 1 item 6c).
+products' gradient is ``transformer._BmmF32``'s.  The sharding hooks
+(``layers.constrain``) read :mod:`repro_torch.sharding`'s active rules;
+``runmode.py`` (XLA cost calibration) has no counterpart yet (ROADMAP
+Queue 1 item 6c, part 2).
 """
 from . import (api, convert, frontends, layers, mlp, moe, rglru, rwkv6,
                transformer)

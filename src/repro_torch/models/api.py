@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
 from ..core.config import resolve_device
 from . import layers as L
 from . import moe as MOE
@@ -88,7 +89,7 @@ class Block(nn.Module):
                 cache["shift_c"].copy_(h2[:, -1])
         else:
             out = self.ffn(h2)
-        return x + out, aux
+        return L.constrain(x + out, "residual"), aux
 
 
 class Model(nn.Module):
@@ -162,6 +163,7 @@ class Model(nn.Module):
             x = tokens.to(cfg.torch_dtype)
         else:
             x = self.embed(tokens)
+        x = L.constrain(x, "residual")
         t = x.shape[1]
         positions = torch.arange(cache_len, cache_len + t, dtype=torch.int32,
                                  device=x.device)
@@ -174,9 +176,10 @@ class Model(nn.Module):
                 if remat:
                     # the blocks draw no random numbers: no RNG state to
                     # stash for the recomputation
-                    x, aux = checkpoint(self._run, seg, x, positions, aux,
-                                        use_reentrant=False,
-                                        preserve_rng_state=False)
+                    x, aux = checkpoint(
+                        self._run, seg, x, positions, aux,
+                        use_reentrant=False, preserve_rng_state=False,
+                        context_fn=sharding.recompute_context())
                 else:
                     x, aux = self._run(seg, x, positions, aux)
         x = self.final_norm(x)
@@ -184,7 +187,7 @@ class Model(nn.Module):
             logits = self.head(x)
         else:
             logits = x @ self.embed.weight.T
-        return logits, cache, aux
+        return L.constrain(logits, "logits"), cache, aux
 
 
 def _check(cfg, model):
@@ -255,7 +258,12 @@ def loss_fn(cfg, model, tokens, labels, *, remat: bool = True):
 # --------------------------------------------------------------- serving
 @torch.no_grad()
 def prefill(cfg, model, tokens):
-    """Forward pass producing logits (no cache; decode fills its own)."""
+    """Forward pass producing logits (no cache; decode fills its own).  A
+    :class:`repro_torch.sharding.ShardedModel` runs under its rules: every
+    rank passes the global batch and gets the global logits."""
+    if isinstance(model, sharding.ShardedModel):
+        _check(cfg, model)
+        return model.prefill(tokens)
     return forward(cfg, model, tokens)[0]
 
 

@@ -84,6 +84,59 @@ def _pairs(cfg, tree: dict):
                              if k not in ("blocks", "tail")}, "", ())
 
 
+def _skeleton(module: nn.Module, skip=()) -> dict:
+    """The reference subtree of ``module`` as shapes: :func:`_walk`'s
+    mapping read backwards (a Linear's weight transposed, ``REF_NAMES``
+    inverted)."""
+    ref_of = {v: k for k, v in getattr(module, "REF_NAMES", {}).items()}
+    tree = {}
+    for name, p in module.named_parameters(recurse=False):
+        tree[ref_of.get(name, name)] = tuple(p.shape)
+    for name, child in module.named_children():
+        if name in skip:
+            continue
+        if isinstance(child, (nn.Linear, nn.Embedding)):
+            shape = tuple(child.weight.shape)
+            tree[name] = shape[::-1] if isinstance(child, nn.Linear) \
+                else shape
+            if getattr(child, "bias", None) is not None:
+                tree[ref_of[f"{name}.bias"]] = tuple(child.bias.shape)
+        else:
+            tree[name] = _skeleton(child)
+    return tree
+
+
+def reference_shapes(cfg) -> dict:
+    """The shapes of the reference's parameter tree of ``cfg``
+    (``repro.models.api.init_params`` under ``jax.eval_shape``) as a
+    nested dict of tuples, from the port's modules: ``blocks`` stacked
+    over the periods, ``tail``, and the top-level leaves."""
+    model = Model(cfg, device="meta")
+    p = len(cfg.pattern)
+
+    def stacked(tree):
+        return {k: stacked(v) if isinstance(v, dict)
+                else (cfg.n_periods,) + v for k, v in tree.items()}
+    tree = {"blocks": {str(j): stacked(_skeleton(model.layers[j]))
+                       for j in range(p)}}
+    if cfg.tail_pattern:
+        tree["tail"] = {str(j): _skeleton(model.layers[p * cfg.n_periods + j])
+                        for j in range(len(cfg.tail_pattern))}
+    tree.update(_skeleton(model, skip=("layers",)))
+    return tree
+
+
+def reference_leaves(cfg) -> dict:
+    """{state-dict name of a ``cfg`` model: (reference path ``"a/b/c"``,
+    the reference leaf's shape, whether that leaf is stacked over the
+    periods, whether the port's tensor is its transpose)} -- what
+    ``sharding.Rules`` reads a parameter's spec from."""
+    tree = reference_shapes(cfg)
+    return {name: ("/".join(path), _get(tree, path), period is not None,
+                   transposed)
+            for path, period, name, transposed in _pairs(cfg, tree)}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]

@@ -1,12 +1,13 @@
-"""Shared building blocks: norms, RoPE, initialisers.
-
-The reference's sharding hook (``layers.constrain``) has no counterpart:
-the port runs a model on one device (ROADMAP Queue 1 item 6c).
+"""Shared building blocks: norms, RoPE, initialisers, sharding hooks
+(:func:`constrain` and :func:`constrain_first_fit`: ``x`` itself outside
+``sharding.Rules.activate()``; see :mod:`repro_torch.sharding`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .. import sharding
 
 #: elements filled per float32 draw of :func:`truncnorm_` (bounds the
 #: temporary when a bfloat16 tensor of billions of elements is filled)
@@ -115,3 +116,17 @@ def apply_rope(x, tables):
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr, xp.to(yr.dtype)], dim=-1).to(x.dtype)
+
+
+def constrain(x, spec_name: str):
+    """The activation layout site ``spec_name`` of the active rules
+    (:func:`repro_torch.sharding.constrain`): ``x`` itself outside
+    ``Rules.activate()``."""
+    return sharding.constrain(x, spec_name)
+
+
+def constrain_first_fit(x, specs):
+    """The first of ``specs`` that fits ``x`` on the active mesh
+    (:func:`repro_torch.sharding.constrain_first_fit`): ``x`` itself
+    outside ``Rules.activate()``."""
+    return sharding.constrain_first_fit(x, specs)

@@ -59,5 +59,7 @@ class MLP(nn.Module):
             xk = x + xx * self.mu_k
             xr = x + xx * self.mu_r
             h = torch.square(F.relu(self.w_in(xk)))
-            return torch.sigmoid(self.w_r(xr)) * self.w_out(h)
-        return self.w_out(h)
+            return L.constrain(torch.sigmoid(self.w_r(xr)) * self.w_out(h),
+                               "residual")
+        h = L.constrain(h, "ffn")
+        return L.constrain(self.w_out(h), "residual")

@@ -12,6 +12,17 @@ contract.  Which tokens overflow follows the reference exactly: the
 (token, choice) pairs are taken slot-major (all first choices, then all
 second choices, ...) and stably sorted by expert, so an expert's first C
 pairs in that order keep their slots.
+
+Under ``sharding.Rules.activate()`` (a ``sharding.ShardedModel``'s step)
+the routing stays global, as GSPMD keeps it in the reference: the
+tokens are gathered over the data axes, so the capacity, the slot order,
+the drops and the aux loss's means are the global batch's on every
+rank, and each rank combines the outputs of its own rows.  The expert
+products run split over the model axis when the rule splits the experts
+(``Rules.expert_axis``): each model rank fills and runs the dispatch
+buffer of its block of experts, and the outputs are gathered over the
+model axis.  ``dropped`` holds the last forward's count of dropped
+(token, choice) pairs (a 0-d tensor on the device, global under a mesh).
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from . import layers as L
 from .mlp import MLP
 
@@ -62,13 +74,19 @@ class MoE(nn.Module):
         """x: (B, T, D) -> (out (B, T, D), aux_loss)."""
         cfg = self.cfg
         b, t, d = x.shape
-        n_tok = b * t
         e, k = cfg.n_experts, cfg.top_k
-        c = capacity(cfg, n_tok)
         dev = x.device
-        xf = x.reshape(n_tok, d)
+        xf = x.reshape(b * t, d)
+        # the global token order: the data ranks' rows, rank-major; this
+        # rank combines tokens [r0, r1) and runs experts [e0, e1)
+        ax_dp, ax_m, e0, e1 = sharding.moe_layout(cfg) or (None, None, 0, e)
+        xg = sharding.gather_rows(xf, ax_dp)
+        n_tok = xg.shape[0]
+        r0 = 0 if ax_dp is None else ax_dp.index * b * t
+        r1 = r0 + b * t
+        c = capacity(cfg, n_tok)
 
-        probs = F.softmax(self.router(xf.float()), dim=-1)     # (T, E)
+        probs = F.softmax(self.router(xg.float()), dim=-1)     # (T, E)
         gate, idx = torch.topk(probs, k, dim=-1)               # (T, k)
         gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
 
@@ -91,6 +109,7 @@ class MoE(nn.Module):
         starts = torch.cumsum(counts, 0) - counts
         pos_flat = rank_in_sorted - starts[idx_flat]
         keep = pos_flat < c
+        self.dropped = (~keep).sum()
         pos_flat = torch.where(keep, pos_flat, 0)
 
         # slot grid: which token feeds (expert e, slot s); sentinel = n_tok
@@ -103,18 +122,24 @@ class MoE(nn.Module):
         token_of_slot = torch.where(
             slot_valid, sorted_tok[slot_src.clamp(0, k * n_tok - 1)], n_tok)
 
-        xf_pad = torch.cat([xf, xf.new_zeros(1, d)])
-        buf = xf_pad[token_of_slot]                      # (E, C, D)
-        h = F.silu(torch.bmm(buf, self.experts_gate)) \
-            * torch.bmm(buf, self.experts_in)
-        out_buf = torch.bmm(h, self.experts_out)         # (E, C, D)
+        # the model ranks each run their experts' part of what reads xg
+        xe = sharding.sum_grad(xg, ax_m)
+        xf_pad = torch.cat([xe, xe.new_zeros(1, d)])
+        buf = xf_pad[token_of_slot[e0:e1]]               # (E, C, D)
+        buf = L.constrain(buf, "moe_buffer")
+        h = F.silu(torch.bmm(buf, self.experts_gate[e0:e1])) \
+            * torch.bmm(buf, self.experts_in[e0:e1])
+        h = L.constrain(h, "moe_hidden")
+        out_buf = torch.bmm(h, self.experts_out[e0:e1])  # (E, C, D)
+        out_buf = L.constrain(out_buf, "moe_buffer")
+        out_buf = sharding.gather_blocks(out_buf, ax_m)
 
-        # combine: per-token gather of its k expert outputs
-        slot_of = idx * c + pos_flat.reshape(k, n_tok).T  # (T, k)
+        # combine: per-token gather of its k expert outputs (own rows)
+        slot_of = (idx * c + pos_flat.reshape(k, n_tok).T)[r0:r1]  # (T, k)
         picked = out_buf.reshape(e * c, d)[slot_of]      # (T, k, D)
-        w = (gate * keep.reshape(k, n_tok).T).float()
+        w = (gate * keep.reshape(k, n_tok).T)[r0:r1].float()
         yf = torch.einsum("tkd,tk->td", picked.float(), w)
 
         if self.shared is not None:
             yf = yf + self.shared(xf[None]).float()[0]
-        return yf.reshape(b, t, d).to(x.dtype), aux
+        return L.constrain(yf.reshape(b, t, d).to(x.dtype), "residual"), aux

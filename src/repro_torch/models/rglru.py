@@ -92,7 +92,8 @@ class RGLRU(nn.Module):
             state["h"].copy_(h)
             state["conv"].copy_(new_tail)
             h = h[:, None]
-        return self.w_rnn_out(h.to(x.dtype) * gate)
+        h = L.constrain(h.to(x.dtype), "ffn")
+        return L.constrain(self.w_rnn_out(h * gate), "residual")
 
 
 def linear_scan(a, b):

@@ -102,7 +102,7 @@ class RWKV6TimeMix(nn.Module):
         # per-head group norm then output gate (back in the residual dtype)
         y = L.rms_norm(y.reshape(b, t, h, -1),
                        self.ln_g.view(h, -1)).reshape(b, t, d)
-        return self.wo(y.to(x.dtype) * g)
+        return L.constrain(self.wo(y.to(x.dtype) * g), "residual")
 
 
 def _heads(x, h):

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import sharding
 from . import layers as L
 
 NEG_INF = -1e30
@@ -111,9 +112,17 @@ def _sdpa_streamed(q, k, v, q_pos, kv_pos, *, causal: bool, window: int):
     g = h // kv
     # the scale rounded to q's dtype, as the reference multiplies
     scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
+    qf = (q * scale).reshape(b, tq, kv, g, hd)
+    # Divisibility-aware head layout: KV heads over `model` when they
+    # divide it, else the query time dim (the reference's site; decode,
+    # tq = 1, falls through to replicated)
+    dp = sharding.current_dp()
+    qf = L.constrain_first_fit(qf, [
+        sharding.P(dp, None, "model", None, None),
+        sharding.P(dp, "model", None, None, None),
+    ])
     # (B, Tq, KV, G, hd) -> (B, KV, Tq*G, hd)
-    qf = (q * scale).reshape(b, tq, kv, g, hd).permute(0, 2, 1, 3, 4) \
-        .reshape(b, kv, tq * g, hd)
+    qf = qf.permute(0, 2, 1, 3, 4).reshape(b, kv, tq * g, hd)
 
     def finish(acc, l):
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
@@ -212,7 +221,7 @@ class Attention(nn.Module):
             out = _sdpa_streamed(q, cache["k"], cache["v"], positions,
                                  kv_pos, causal=cfg.causal,
                                  window=self.window)
-        return self.wo(out.reshape(b, t, -1))
+        return L.constrain(self.wo(out.reshape(b, t, -1)), "residual")
 
 
 def init_attn_cache(cfg, kind: str, batch: int, max_len: int, dtype,

@@ -4,11 +4,10 @@
                    compressed_psum, global-norm clipping
     data.py        TokenStream, ProbabilisticSampler (the PGF engine)
     checkpoint.py  atomic, manifest-ed, verified checkpoints
-    trainer.py     make_train_step, Trainer, run_with_failures
-
-The reference's ``elastic.py`` (resharding onto a new mesh) waits for the
-LM mesh (ROADMAP Queue 1 item 6c).
+    trainer.py     make_train_step (one rank, or sharded on a mesh),
+                   Trainer, run_with_failures
+    elastic.py     reshard onto another mesh, degrade_mesh, scale_batch
 """
-from . import checkpoint, data, optimizer, trainer
+from . import checkpoint, data, elastic, optimizer, trainer
 
-__all__ = ["checkpoint", "data", "optimizer", "trainer"]
+__all__ = ["checkpoint", "data", "elastic", "optimizer", "trainer"]

@@ -56,8 +56,10 @@ class AdamWState:
 
 
 def named(params) -> dict:
-    """{name: tensor} of a module's parameters, or ``params`` itself."""
-    if isinstance(params, nn.Module):
+    """{name: tensor} of a module's parameters (or of anything with
+    ``named_parameters``, e.g. a ``sharding.ShardedModel``'s blocks), or
+    ``params`` itself."""
+    if isinstance(params, nn.Module) or hasattr(params, "named_parameters"):
         return dict(params.named_parameters())
     return dict(params)
 
@@ -166,25 +168,30 @@ def compressed_psum(g, err, ax):
     return total.float() * scale / _c(x, ax.size), new_err
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (a dict of tensors), in
-    float32, summed leaf by leaf in the dict's order, a leaf's
-    ``UPDATE_CHUNK``-element pieces in order (one piece below that: the
-    float32 square of nemotron's 4.7e9-element embedding gradient would
-    take 17.6 GB)."""
+def sum_of_squares(tree) -> torch.Tensor:
+    """The sum of squares of every leaf (a dict of tensors), in float32,
+    summed leaf by leaf in the dict's order, a leaf's ``UPDATE_CHUNK``-
+    element pieces in order (one piece below that: the float32 square of
+    nemotron's 4.7e9-element embedding gradient would take 17.6 GB)."""
     total = None
     for g in tree.values():
         for gc in _chunks(g):
             sq = torch.sum(gc.float() ** 2)
             total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of :func:`sum_of_squares`."""
+    return torch.sqrt(sum_of_squares(tree))
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm=None):
     """Scale every leaf in place to ``(g.float() * scale).to(g.dtype)``,
-    scale = min(1, max_norm / norm).  Returns (tree, norm)."""
-    n = global_norm(tree)
+    scale = min(1, max_norm / norm), the norm :func:`global_norm`'s
+    unless given (a sharded tree's global one).  Returns (tree, norm)."""
+    n = global_norm(tree) if norm is None else norm
     scale = torch.clamp_max(_c(n, max_norm) / torch.clamp_min(n, 1e-12),
                             1.0)
     for g in tree.values():

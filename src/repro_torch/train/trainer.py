@@ -12,14 +12,27 @@ then the AdamW update.  :class:`Trainer` drives it with
 checkpoint-every-N and restart-from-latest semantics;
 :func:`run_with_failures` kills the loop at chosen steps and restarts it,
 and its final parameters equal an uninterrupted run's bit for bit.
+
+Given a :class:`repro_torch.sharding.ShardedModel` (the parameters
+placed by a ``Rules`` table on a mesh of ranks; every rank calls the step
+with the same global batch), the same step runs sharded: each
+microbatch's rows are split over the data axes, every rank runs
+``loss_fn`` on its rows with the parameters gathered, the gradients are
+reduced to each rank's blocks (the mean over the data axes), the clip
+reads the global norm, and AdamW updates each rank's blocks.  Loss, grad
+norm and parameters equal the one-rank step's up to float rounding (the
+rows' sums run in another order); a rerun on the same mesh gives the same
+bits.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
+from .. import sharding
 from ..core.config import resolve_device
 from ..models import api
 from . import checkpoint as ckpt_lib
@@ -40,6 +53,12 @@ def make_train_step(cfg, opt: AdamW, *, accum: int = 1, remat: bool = True,
     """
 
     def step(model, opt_state: AdamWState, batch) -> dict:
+        if isinstance(model, sharding.ShardedModel):
+            with model.rules.activate():
+                return sharded_step(model, opt_state, batch)
+        if sharding.current_rules() is not None:
+            raise ValueError("under Rules.activate() the step takes a "
+                             "sharding.ShardedModel")
         tokens, labels = batch["tokens"], batch["labels"]
         params = dict(model.named_parameters())
         for p in params.values():
@@ -71,6 +90,44 @@ def make_train_step(cfg, opt: AdamW, *, accum: int = 1, remat: bool = True,
         opt.update(grads, opt_state, params)
         for p in params.values():
             p.grad = None
+        return dict(loss=loss, grad_norm=gnorm)
+
+    def sharded_step(model, opt_state, batch) -> dict:
+        """The step on a mesh (module docstring): microbatch ``i`` is the
+        global rows ``[i * mb, (i + 1) * mb)``, as the reference reshapes
+        the batch, each split over the data axes."""
+        tokens, labels = batch["tokens"], batch["labels"]
+
+        def micro(tok, lab):
+            """(the global mean loss, this rank's gradient blocks)."""
+            place = functools.partial(sharding.place_batch, model.rules)
+            l, _ = api.loss_fn(cfg, model.work, place(tok), place(lab),
+                               remat=remat)
+            l.backward()
+            return model.mean_over_dp(l), model.reduce_grads()
+
+        model.gather_()
+        if accum > 1:
+            mb = tokens.shape[0] // accum
+            div = torch.full((), accum, dtype=torch.float32,
+                             device=tokens.device)
+            grads = {k: torch.zeros(p.shape, dtype=accum_dtype,
+                                    device=p.device)
+                     for k, p in model.params.items()}
+            loss = torch.zeros_like(div)
+            for i in range(accum):
+                sl = slice(i * mb, (i + 1) * mb)
+                l, g = micro(tokens[sl], labels[sl])
+                with torch.no_grad():
+                    for k, v in g.items():
+                        grads[k] += (v / div).to(accum_dtype)
+                loss = loss + l / div
+        else:
+            loss, g = micro(tokens, labels)
+            grads = {k: v.to(model.params[k].dtype) for k, v in g.items()}
+        grads, gnorm = clip_by_global_norm(grads, clip,
+                                           model.global_norm(grads))
+        opt.update(grads, opt_state, model.params)
         return dict(loss=loss, grad_norm=gnorm)
 
     return step

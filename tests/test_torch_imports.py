@@ -62,7 +62,8 @@ def test_guard_sees_the_whole_package():
             "report.py", "faults.py", "chip_smoke.py", "distributed.py",
             "mesh.py", "ranks.py", "serving.py", "serve.py", "api.py",
             "transformer.py", "moe.py", "rglru.py", "rwkv6.py",
-            "base.py"} <= names
+            "base.py", "sharding.py", "elastic.py", "checkpoint.py",
+            "trainer.py"} <= names
 
 
 @pytest.mark.parametrize("source,bad", [
