@@ -165,7 +165,25 @@ Twelve phases, each of which raises on a failed check (exit code != 0):
    (d) (a)'s state after step 2, saved under (2, 2) (full arrays),
    restored under (4, 1) with ``restore(shardings=)`` and resharded back
    with ``elastic.reshard``: every leaf bit-equal to the saved block; a
-   step after it bit-equal to (a)'s third.
+   step after it bit-equal to (a)'s third.  The step gathers one
+   segment's parameters at a time (``ShardedModel.gathered``), so a
+   step's gather bytes are the parameters twice (remat gathers again).
+13. The dry-run (``launch/cells.py``, ``launch/dryrun.py``), started in
+   subprocesses at the top of the run (``DryRuns``), beside phases 1-12.
+   (a) ``DRYRUN_CELLS`` on both production meshes (fake process groups of
+   256 and 512 ranks, fake tensors): a line a cell (peak GB a device, the
+   FLOPs against the model's, bytes, bytes received by kind, the three
+   roofline terms and the dominant one).  (b) ``CARD_CELLS`` for real on
+   a one-rank NCCL mesh (1, 1) at full width and depth (seeded weights):
+   the FLOPs of the step (the dry-run's own formulas over the real
+   operations, ``LiveBytes``) equal the dry-run's trace of the same cell
+   at the same settings, the step's peak (max allocated less what was
+   allocated before) within ``PEAK_RTOL`` or ``PEAK_ATOL`` of the
+   dry-run's, the launch counters equal the dry-run's (the pgf cell
+   reaches ``logcf`` and ``group_cumulant_sums``, each held to its plain
+   version in phase 1), the output finite; ms a step beside the dry-run's
+   dominant term.  (c) Phase 12's bytes received by kind, every rank and
+   step, equal the dry-run of its configuration on a fake world of 4.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -3629,6 +3647,8 @@ def mesh_train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
     check(all(r["b"]["finite"] for r in ranks),
           "LM mesh (b): a parameter is not finite")
     report["b"]["drops"] = moe_one["drops"]
+    for key in ("a", "b"):
+        report[key]["rank_bytes"] = [r[key]["bytes"] for r in ranks]
     print(f"LM mesh (b) dropped (token, choice) pairs after the first step, "
           f"by layer: {drops[0]} on every rank, one rank {moe_one['drops']}"
           f" (equal: the routing is global)")
@@ -3664,19 +3684,301 @@ def mesh_train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
     return report
 
 
+# ------------------------------------------------- phase 13: the dry-run
+#: (a) the dry-run's subset on both production meshes (every cell on both
+#: meshes takes ~35 min of tracing on 6 cores), traced in a subprocess
+#: started at the top of the run, beside phases 1-12
+DRYRUN_CELLS = ("nemotron_4_340b/train_4k", "nemotron_4_340b/decode_32k",
+                "olmoe_1b_7b/train_4k", "pgf_tpch/query")
+#: (a) cells given the calibration's FLOPs, bytes and collective bytes
+#: alone (1 and 2 periods, accum 2 and 4; equal to the full trace on the
+#: port), not a full-depth trace: nemotron's train_4k takes ~11 min of one
+#: core a mesh, and its peak is the CPU host's full trace's (PERF.md)
+DRYRUN_CALIBRATED = ("nemotron_4_340b/train_4k",)
+#: (b) cells run on the card at a one-rank NCCL mesh (1, 1), at full width
+#: and depth, each beside the dry-run's trace of the same cell: (arch,
+#: shape, the cell builder's batch / accum / n_tuples)
+CARD_CELLS = (("yi_6b", "train_4k", dict(batch=2, accum=1)),
+              ("yi_6b", "decode_32k", dict(batch=4)),
+              ("yi_6b", "prefill_32k", dict(batch=1)),
+              ("pgf_tpch", "query", dict(n_tuples=1 << 24)))
+#: (b) the card's step peak (max allocated less what was allocated before)
+#: against the dry-run's: within the larger of 5% and 1 GiB
+PEAK_RTOL = 0.05
+PEAK_ATOL = 1 << 30
+
+
+def dryrun_commands(out_dir) -> dict:
+    """The dry-run invocations of phase 13: (a) the subset on both
+    production meshes, (b) each card cell at its settings on (1, 1), (c)
+    phase 12's configuration (LM_MESH) on a fake world of 4."""
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    d = pathlib.Path(out_dir) / "dryrun"
+    b = []
+    for arch, shape, kw in CARD_CELLS:
+        cmd = base + ["--arch", arch, "--shape", shape, "--mesh", "1x1",
+                      "--out", str(d / "b")]
+        for k, v in kw.items():
+            cmd += [f"--{k.replace('_', '-')}", str(v)]
+        b.append(cmd)
+    c = LM_MESH
+    return dict(
+        a=[base + ["--cells", ",".join(DRYRUN_CELLS), "--both-meshes",
+                   "--calibrate-only", ",".join(DRYRUN_CALIBRATED),
+                   "--jobs", "2", "--out", str(d / "a")]],
+        bc=b + [base + ["--cells", f"{c['arch']}/train_4k,"
+                        f"{c['moe']}/train_4k", "--mesh",
+                        "x".join(map(str, c["shape"])), "--layers",
+                        str(c["layers"]), "--batch", str(c["batch"]),
+                        "--seq", str(c["seq"]), "--accum", "1", "--out",
+                        str(d / "c")]])
+
+
+class DryRuns:
+    """Phase 13's dry-runs in the background: (a) in one process, (b) and
+    (c) one after another in another; their output under
+    ``out_dir/dryrun``.  :meth:`wait` joins them; :meth:`stop` ends any
+    still running."""
+
+    def __init__(self, out_dir):
+        import shutil
+        import threading
+        self.dir = pathlib.Path(out_dir) / "dryrun"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.procs: list = []
+        self.rcs: dict = {}
+        self.t0 = time.perf_counter()
+        self.seconds: dict = {}
+
+        def run(key, cmds):
+            rcs = []
+            with open(self.dir / f"{key}.log", "w") as log:
+                for cmd in cmds:
+                    # a session of its own: stop() ends its workers too
+                    p = subprocess.Popen(cmd, stdout=log,
+                                         stderr=subprocess.STDOUT, env=env,
+                                         cwd=str(ROOT),
+                                         start_new_session=True)
+                    self.procs.append(p)
+                    rcs.append(p.wait())
+            self.rcs[key] = rcs
+            self.seconds[key] = time.perf_counter() - self.t0
+        self.threads = [threading.Thread(target=run, args=(k, v),
+                                         daemon=True)
+                        for k, v in dryrun_commands(out_dir).items()]
+        for t in self.threads:
+            t.start()
+
+    def wait(self, timeout: float) -> None:
+        end = time.perf_counter() + timeout
+        for t in self.threads:
+            t.join(max(0.0, end - time.perf_counter()))
+        check(not any(t.is_alive() for t in self.threads),
+              f"phase 13: the dry-runs did not end within {timeout} s")
+        for key, rcs in self.rcs.items():
+            check(all(rc == 0 for rc in rcs), f"phase 13: dry-run {key} "
+                  f"exited {rcs}: " + (self.dir / f"{key}.log").read_text()
+                  [-3000:])
+
+    def stop(self) -> None:
+        import signal
+        for p in self.procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+    def results(self, sub: str) -> dict:
+        return {json.loads(p.read_text())["cell"] + "@" + p.stem.rsplit(
+            "_", 1)[1]: json.loads(p.read_text())
+            for p in sorted((self.dir / sub).glob("*.json"))}
+
+
+def card_cell_args(cell, arch: str, dev):
+    """The card cell's arguments: the blocks of a seeded model (whole on
+    (1, 1)), zero optimizer state and cache, seeded tokens; the pgf
+    cell's seeded columns (p in (0, 1), integer values 1-50, 4,096
+    groups)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    gen = torch.Generator(dev).manual_seed(0)
+    if arch == "pgf_tpch":
+        n = cell.args["probs"].shape[0]
+        return dict(
+            probs=torch.rand(n, generator=gen, device=dev),
+            values=torch.randint(1, 51, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+            gids=torch.randint(0, 4096, (n,), generator=gen, device=dev,
+                               dtype=torch.int32))
+    cfg = configs.get_config(arch)
+    model = api.init_params(cfg, gen, dev)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    del model
+
+    def fill(path, t):
+        if path[0] in ("tokens", "labels"):
+            t.copy_(torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                  device=dev, dtype=t.dtype))
+        else:
+            t.zero_()
+    args = cell.materialize(dev, fill=lambda path, t: None
+                            if path[0] == "params" else fill(path, t))
+    args["params"] = params
+    return args
+
+
+def card_cells(card: str, dry: dict) -> dict:
+    """Phase 13 (b): each card cell once counted (FLOPs by the dry-run's
+    own formulas, ``launch.dryrun.LiveBytes``; the step's peak by the
+    allocator; the launch counters) and once timed, against the dry-run's
+    trace of the same cell."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells as C
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.launch.mesh import make_mesh
+    store = ROOT / "build" / "chip_smoke" / "phase13_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    tdist.init_process_group("nccl", store=tdist.FileStore(str(store), 1),
+                             rank=0, world_size=1,
+                             device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), backend="nccl",
+                         device="cuda:0")
+        dev = mesh.device
+        for arch, shape, kw in CARD_CELLS:
+            name = f"{arch}/{shape}"
+            want = dry[f"{name}@1x1"]
+            cell = C.build_cell(arch, shape, mesh, **kw)
+            args = card_cell_args(cell, arch, dev)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with LiveBytes() as live:
+                res = cell.fn(**args)
+            torch.cuda.synchronize()
+            counted_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - before
+            launches = {k: v for k, v in ops.launches().items() if v}
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (res.values() if isinstance(res, dict) else
+                          res if isinstance(res, tuple) else [res])
+                         if torch.is_tensor(t) and t.is_floating_point())
+            del res
+            if shape == "prefill_32k":      # ~a minute a step: once
+                ms = counted_ms
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cell.fn(**args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            del args, cell
+            dry_peak = want["memory"]["temp_peak"]
+            tol = max(PEAK_RTOL * dry_peak, PEAK_ATOL)
+            roof = want["roofline"]
+            t_dom = roof["t_" + roof["dominant"]] * 1e3
+            r = dict(ms=ms, counted_ms=counted_ms, flops=live.flops,
+                     dry_flops=want["flops_counted"], peak=peak,
+                     dry_peak=dry_peak, live_peak=live.peak,
+                     launches=launches,
+                     dry_launches={k: v for k, v in want["launches"].items()
+                                   if v},
+                     dominant=roof["dominant"], dominant_ms=t_dom,
+                     kernel_flops=want["kernel_flops"], finite=finite)
+            out[name] = r
+            print(f"phase 13 (b) {name} {kw} on a (1, 1) NCCL mesh: "
+                  f"{ms:.1f} ms a step (counted run {counted_ms:.1f} ms) "
+                  f"beside the dry-run's dominant term {roof['dominant']} "
+                  f"{t_dom:.1f} ms (compute {roof['t_compute'] * 1e3:.1f}, "
+                  f"memory {roof['t_memory'] * 1e3:.1f} ms); FLOPs card "
+                  f"{live.flops:.6e} / dry-run {want['flops_counted']:.6e}"
+                  + (f" (+ kernels {want['kernel_flops']:.4e})"
+                     if want["kernel_flops"] else "")
+                  + f"; step peak card {peak / 1e9:.3f} GB (live storages "
+                  f"{live.peak / 1e9:.3f}) / dry-run {dry_peak / 1e9:.3f} GB"
+                  f" (tolerance {tol / 1e9:.3f}); launches {launches} / "
+                  f"dry-run {r['dry_launches']} [{card}]")
+            check(finite, f"phase 13 (b) {name}: output not finite")
+            check(live.flops == want["flops_counted"],
+                  f"phase 13 (b) {name}: FLOPs {live.flops} against the "
+                  f"dry-run's {want['flops_counted']}")
+            check(abs(peak - dry_peak) <= tol,
+                  f"phase 13 (b) {name}: peak {peak} against the dry-run's "
+                  f"{dry_peak}")
+            check(launches == r["dry_launches"],
+                  f"phase 13 (b) {name}: launches {launches} against the "
+                  f"dry-run's {r['dry_launches']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
+def dryrun_phase(card: str, runs: "DryRuns", mesh_train: dict) -> dict:
+    """Phase 13 (module docstring): (a) the dry-run's lines, (b) the card
+    against the dry-run, (c) phase 12's bytes against the dry-run's."""
+    from repro_torch.launch.dryrun import summary
+    t_phase = time.perf_counter()
+    runs.wait(timeout=600)
+    report = dict(seconds_background=dict(runs.seconds))
+    a = runs.results("a")
+    check(sorted(a) == sorted(f"{c}@{m}" for c in DRYRUN_CELLS
+                              for m in ("16x16", "2x16x16")),
+          f"phase 13 (a): dry-run results {sorted(a)}")
+    for tag, res in a.items():
+        check("error" not in res, f"phase 13 (a) {tag}: {res.get('error')}")
+        print(f"phase 13 (a) dry-run {tag}: {summary(res)}")
+    report["a"] = {k: dict(memory=v["memory"], roofline=v["roofline"],
+                           collectives=v["collectives"]["bytes"],
+                           launches=v["launches"],
+                           model_flops_per_device=v.get(
+                               "model_flops_per_device"))
+                   for k, v in a.items()}
+    report["b"] = card_cells(card, runs.results("b"))
+    c = runs.results("c")
+    for key, arch in (("a", LM_MESH["arch"]), ("b", LM_MESH["moe"])):
+        want = c[f"{arch}/train_4k@2x2"]["collectives"]["bytes"]
+        got = mesh_train[key]["rank_bytes"]
+        check(all(step == want for rank in got for step in rank),
+              f"phase 13 (c) {arch}: phase 12 received {got}, the dry-run "
+              f"{want}")
+        print(f"phase 13 (c) {arch} ({LM_MESH['layers']} layers, "
+              f"{LM_MESH['shape']}, {LM_MESH['batch']} x {LM_MESH['seq']}) "
+              "bytes received a step by kind, every rank and step of phase "
+              "12 = the dry-run on a fake world of 4: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(want.items())))
+        report.setdefault("c", {})[arch] = want
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13 took {report['seconds']:.1f} s here; the dry-runs "
+          f"{runs.seconds} s from the start of the run [{card}]")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card on this host", file=sys.stderr)
         return 2
     try:
-        from repro_torch.db import tpch
-        from repro_torch.kernels import build, ops
+        from repro_torch.kernels import build  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3684,6 +3986,19 @@ def main() -> int:
     if "--out" in sys.argv:
         out_dir = pathlib.Path(sys.argv[sys.argv.index("--out") + 1])
     out_dir.mkdir(parents=True, exist_ok=True)
+    dryruns = DryRuns(out_dir)          # phase 13's, in the background
+    try:
+        return run(out_dir, dryruns)
+    finally:
+        dryruns.stop()
+
+
+def run(out_dir, dryruns) -> int:
+    """Phases 1-13 (module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.kernels import build, ops
     report = {}
     card = card_line()
     print(f"card: {card}")
@@ -3804,16 +4119,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     report["mesh_train"] = mesh_train_phase(card, out_dir)
+    torch.cuda.empty_cache()
+
+    report["dryrun"] = dryrun_phase(card, dryruns, report["mesh_train"])
 
     # launches: the runs of the TPC-H path, the value-layer path, the
     # streamed path, the mesh path (every rank), the serving path, the
-    # training path and the LM mesh (every rank).
+    # training path, the LM mesh (every rank) and phase 13's card cells.
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
     serving_launches = report["serving"]["launches"]
     train_launches = report["train"]["launches"]
     lm_mesh_launches = report["mesh_train"]["launches"]
+    cell_launches = {k: sum(c["launches"].get(k, 0) for c in
+                            report["dryrun"]["b"].values())
+                     for k in launches}
     kernels = []
     for name in ("logcf", "group_logcf", "cumulant_sums",
                  "group_cumulant_sums", "polymul"):
@@ -3823,7 +4144,7 @@ def main() -> int:
                             launches=launches[name] + value_launches[name]
                             + stream_launches[name] + mesh_launches[name]
                             + serving_launches[name] + train_launches[name]
-                            + lm_mesh_launches[name],
+                            + lm_mesh_launches[name] + cell_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

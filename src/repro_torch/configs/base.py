@@ -127,8 +127,11 @@ class ModelConfig:
         return dense + active
 
 
-def input_specs(cfg: ModelConfig, shape_name: str, *, batch_override=None):
-    """``meta`` tensors standing in for every model input of one cell.
+def input_specs(cfg: ModelConfig, shape_name: str, *, batch_override=None,
+                seq_override=None):
+    """``meta`` tensors standing in for every model input of one cell
+    (``batch_override`` / ``seq_override``: another global batch or
+    sequence length, the cuts of a run on one card or on the CPU).
 
     train:   {tokens (B,S) i32, labels (B,S) i32}     [embedding_inputs:
               embeds (B,S,D) bf16 instead of tokens]
@@ -139,7 +142,7 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, batch_override=None):
     from ..models import api
     spec = SHAPES[shape_name]
     b = batch_override or spec["global_batch"]
-    s = spec["seq_len"]
+    s = seq_override or spec["seq_len"]
     dt = torch.bfloat16
 
     def meta(shape, dtype):

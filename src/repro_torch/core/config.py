@@ -4,14 +4,19 @@
 JAX package with x64 off; float32 is also the only dtype the CUDA kernels
 take.  ``resolve_device`` turns an entry point's ``device=`` into a
 ``torch.device``: the card is the default, and asking for it on a host
-without one raises instead of falling back to the CPU.
+without one raises instead of falling back to the CPU.  :func:`dry_run`
+is the one place where something on the CPU computes as if on the card:
+the dry-run's fake tensors, which hold no data.
 :func:`settle_cpu_math` runs once when the package is imported.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _X64 = {"on": False}
+_DRY_RUN = {"on": False, "card": False}
 
 
 def enable_x64() -> None:
@@ -36,6 +41,44 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but no CUDA card is available; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+@contextlib.contextmanager
+def dry_run(card: bool = True):
+    """The dry-run's trace (``launch/dryrun.py``).  Inside, a kernel
+    wrapper given a ``FakeTensor`` records its launch (count, FLOPs and
+    bytes; ``kernels/build.py`` ``faked``) instead of making it, and, with
+    ``card``, a ``FakeTensor`` on the CPU computes as a tensor on the card
+    (:func:`on_card`): ``FakeTensorMode`` cannot run a CUDA backward on a
+    host without a card.  A real tensor is never affected, so no real run
+    carries on without a card through this."""
+    prev = dict(_DRY_RUN)
+    _DRY_RUN.update(on=True, card=card)
+    try:
+        yield
+    finally:
+        _DRY_RUN.update(prev)
+
+
+def in_dry_run() -> bool:
+    return _DRY_RUN["on"]
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a ``FakeTensor`` (shape, dtype and device, no
+    data)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t) -> bool:
+    """Whether ``t`` computes as a tensor on the card: it is on one, or it
+    is a CPU ``FakeTensor`` standing in for one inside
+    ``dry_run(card=True)``."""
+    if t.device.type == "cuda":
+        return True
+    return _DRY_RUN["on"] and _DRY_RUN["card"] and t.device.type == "cpu" \
+        and is_fake(t)
 
 
 def settle_cpu_math() -> None:

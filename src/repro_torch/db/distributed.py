@@ -160,7 +160,7 @@ def _model_axis(mesh, model_axis: str | None) -> str | None:
 def make_uda_step(mesh, uda_factory: Callable[[int, int], dict], *,
                   max_groups: int, data_axes: Sequence[str] = ("data",),
                   model_axis: str | None = "model", block: int = 8192,
-                  post=None):
+                  post=None, local: bool = False):
     """A distributed Accumulate / Merge / Finalize step on ``mesh``.
 
     ``uda_factory(model_size, model_rank) -> {name: UDA}`` (model_rank 0
@@ -170,7 +170,9 @@ def make_uda_step(mesh, uda_factory: Callable[[int, int], dict], *,
     this rank's contiguous block, merges with
     :func:`repro_torch.core.uda.reduce_collective` (a psum over the data
     axes: held to tolerance, not bit-equal) and returns the finalized
-    results, or ``post(udas, states)``."""
+    results, or ``post(udas, states)``.  With ``local`` the step takes this
+    rank's block of each column (the contiguous row partition:
+    ``shard_columns``) instead of the global columns."""
     names = _data_axes(mesh, data_axes)
     ax = mesh.axis(names) if names else None
     model = _model_axis(mesh, model_axis)
@@ -179,9 +181,10 @@ def make_uda_step(mesh, uda_factory: Callable[[int, int], dict], *,
     model_rank = mesh.coords[model] if model else 0
 
     def step(probs, values, gids):
-        shards = ax.size if ax is not None else 1
+        shards = ax.size if ax is not None and not local else 1
         n = probs.shape[0] // shards
-        sl = slice(data_rank(ax) * n, (data_rank(ax) + 1) * n)
+        sl = slice(data_rank(ax) * n, (data_rank(ax) + 1) * n) \
+            if shards > 1 else slice(None)
         cut: dict = {}
         if isinstance(values, dict):
             vals = {k: None if v is None
@@ -230,11 +233,12 @@ def pad_for(mesh, probs, values, gids, *, max_groups: int,
 
 def make_query_step(mesh, *, max_groups: int = 1024, num_freq: int = 4096,
                     orders: int = 8, data_axes: Sequence[str] = ("data",),
-                    model_axis: str | None = "model"):
+                    model_axis: str | None = "model", local: bool = False):
     """The canonical distributed aggregate step: per-group confidence,
     Normal terms, cumulant sums and the exact global distribution
     (``num_freq`` coefficients, its frequencies split over the model
-    axis).  Returns (confidence, normal terms, cumulant terms, coeffs)."""
+    axis).  Returns (confidence, normal terms, cumulant terms, coeffs).
+    ``local``: see :func:`make_uda_step`."""
     model = _model_axis(mesh, model_axis)
     model_size = mesh.shape[model] if model else 1
     if num_freq % model_size:
@@ -256,7 +260,7 @@ def make_query_step(mesh, *, max_groups: int = 1024, num_freq: int = 4096,
 
     return make_uda_step(mesh, factory, max_groups=max_groups,
                          data_axes=data_axes, model_axis=model_axis,
-                         post=post)
+                         post=post, local=local)
 
 
 # ----------------------------------------------------- sharded frontend

@@ -19,6 +19,8 @@ import time
 
 import torch
 
+from ..core import config
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -130,6 +132,33 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
+#: what the launches recorded inside ``core.config.dry_run()`` would have
+#: cost: {kernel: {"launches", "flops", "bytes"}} (the bound formulas of
+#: each wrapper's ``cost``); :func:`reset_fake_costs` clears it.
+FAKE_COSTS: dict = {}
+
+
+def reset_fake_costs() -> None:
+    FAKE_COSTS.clear()
+
+
+def faked(t, name: str, flops: int, nbytes: int) -> bool:
+    """True when ``t`` is a ``FakeTensor`` inside the dry-run: the launch
+    of kernel ``name`` is recorded with its FLOPs and bytes, not made.
+    False for a real tensor; raises for a ``FakeTensor`` outside the
+    dry-run (it holds no data to launch on)."""
+    if not config.is_fake(t):
+        return False
+    if not config.in_dry_run():
+        raise RuntimeError(f"{name}: a FakeTensor reached a kernel launch "
+                           "outside the dry-run (core.config.dry_run)")
+    rec = FAKE_COSTS.setdefault(name, dict(launches=0, flops=0, bytes=0))
+    rec["launches"] += 1
+    rec["flops"] += int(flops)
+    rec["bytes"] += int(nbytes)
+    return True
+
+
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -137,7 +166,7 @@ def stream_handle(device) -> int:
 def check_operand(name: str, t, dtype, n: int | None = None) -> None:
     """Raise unless ``t`` is a contiguous 1-D CUDA tensor of ``dtype``
     (and length ``n``): what every C entry point takes."""
-    if t.device.type != "cuda" or t.dtype != dtype or t.dim() != 1 \
+    if not config.on_card(t) or t.dtype != dtype or t.dim() != 1 \
             or not t.is_contiguous() or (n is not None and t.shape[0] != n):
         raise ValueError(
             f"{name}: expected a contiguous 1-D CUDA {dtype} tensor"

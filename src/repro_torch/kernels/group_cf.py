@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from ..core.config import on_card
 from . import build, ref, segments
-from .pb_cf import barrett_magic, phase_shift, split_modmult_operands
+from .pb_cf import (OPS_PER_PAIR, barrett_magic, phase_shift,
+                    split_modmult_operands)
 
 PIECE = 1024            # tuples per piece of a long group
 #: groups of at most this many tuples are summed directly in the kernel's
@@ -38,6 +40,14 @@ def presort_operands(probs, values, gids, num_freq: int, num_groups: int):
             bounds.to(torch.int32).contiguous(), first, start, end)
 
 
+def cost(n: int, num_groups: int, freq_cnt: int) -> tuple:
+    """(float operations, bytes) of one launch at its bound: every tuple
+    at every frequency of the window; probs, a and gids read once, the
+    (num_groups, freq_cnt) rows written once."""
+    return (n * freq_cnt * OPS_PER_PAIR,
+            n * 12 + 2 * num_groups * freq_cnt * 4)
+
+
 def group_logcf_plain(probs, values, gids, num_groups: int, num_freq: int,
                       freq_lo: int = 0, freq_cnt: int | None = None):
     """The plain PyTorch version: one (n, cnt) tile and a segment sum."""
@@ -57,11 +67,20 @@ def group_logcf(probs, values, gids, *, num_groups: int, num_freq: int,
     if not (0 <= freq_lo and freq_lo + freq_cnt <= num_freq):
         raise ValueError(f"window [{freq_lo}, {freq_lo + freq_cnt}) "
                          f"outside [0, {num_freq})")
-    if probs.device.type == "cpu":
-        if operands is not None:
-            probs, values, _, gids = operands[:4]
+    if operands is not None:
+        probs, values, _, gids = operands[:4]
+    if probs.device.type == "cpu" and not on_card(probs):
         return group_logcf_plain(probs, values, gids, num_groups, num_freq,
                                  freq_lo, freq_cnt)
+    if num_groups * freq_cnt and build.faked(
+            probs, "group_logcf",
+            *cost(probs.shape[0], num_groups, freq_cnt)):
+        # the presort's piece table needs the data: the dry-run records
+        # the launch and its outputs only
+        out = torch.empty((2, num_groups, freq_cnt), dtype=torch.float32,
+                          device=probs.device)
+        group_logcf.launches += 1
+        return out[0], out[1]
     if operands is None:
         operands = presort_operands(probs, values, gids, num_freq,
                                     num_groups)

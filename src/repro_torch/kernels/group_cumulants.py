@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.config import on_card
 from . import build, ref
-from .cumulants import check_orders, launch_tiles
+from .cumulants import check_orders, launch_tiles, ops_per_tuple
 
 #: route (a) up to this many groups (csrc/cumulants.cu kMaxTileGroups).
 NO_SORT_MAX = 8
@@ -29,6 +30,13 @@ NO_SORT_MAX = 8
 SHORT_MAX = 32
 PIECE = 1024
 SLOT = SHORT_MAX + 1
+
+
+def cost(n: int, num_groups: int, orders: int) -> tuple:
+    """(float operations, bytes) of one call at its bound, either route:
+    16 bytes a tuple (p, v and a group id read, as sorted or not) and the
+    (num_groups, orders) sums written once."""
+    return n * ops_per_tuple(orders), n * 16 + num_groups * orders * 4
 
 
 def slot_count(n: int) -> int:
@@ -58,28 +66,31 @@ def group_cumulant_sums(probs, values, gids, *, num_groups: int,
     check_orders(orders)
     if operands is not None:
         probs, values, gids = operands
-    if probs.device.type == "cpu":
+    if probs.device.type == "cpu" and not on_card(probs):
         return group_cumulant_sums_plain(probs, values, gids, num_groups,
                                          orders)
     n = probs.shape[0]
+    fake = build.faked(probs, "group_cumulant_sums",
+                       *cost(n, num_groups, orders))
     v = values.to(torch.float32).contiguous()
     build.check_operand("group_cumulant_sums probs", probs, torch.float32)
     build.check_operand("group_cumulant_sums values", v, torch.float32, n)
     if num_groups <= NO_SORT_MAX:
         g = gids.to(torch.int64).contiguous()
         build.check_operand("group_cumulant_sums gids", g, torch.int64, n)
-        out = launch_tiles(probs, v, g, num_groups, orders)[
+        out = launch_tiles(probs, v, g, num_groups, orders, fake)[
             :num_groups * orders].view(num_groups, orders)
     else:
         out = _launch_sorted(probs, v, gids, num_groups, orders,
-                             presorted=operands is not None)
+                             presorted=operands is not None, fake=fake)
     group_cumulant_sums.launches += 1
     return out
 
 
 def _launch_sorted(p, v, gids, num_groups: int, orders: int,
-                   presorted: bool):
-    """Route (b): sort unless presorted, launch csrc/group_cumulants.cu."""
+                   presorted: bool, fake: bool = False):
+    """Route (b): sort unless presorted, launch csrc/group_cumulants.cu
+    (with ``fake``, the dry-run: only the outputs)."""
     if not presorted:
         p, v, gids = presort_operands(p, v, gids)
     g = gids.to(torch.int32).contiguous()
@@ -90,11 +101,13 @@ def _launch_sorted(p, v, gids, num_groups: int, orders: int,
     width = num_groups * orders
     buf = torch.empty((width + slots * orders + num_groups + 1,),
                       dtype=torch.float32, device=p.device)
-    out = buf.data_ptr()
-    build.launch("group_cumulant_sums_launch", p.data_ptr(), v.data_ptr(),
-                 g.data_ptr(), out + 4 * (width + slots * orders),
-                 out + 4 * width, out, n, slots, num_groups, orders,
-                 build.stream_handle(p.device))
+    if not fake:
+        out = buf.data_ptr()
+        build.launch("group_cumulant_sums_launch", p.data_ptr(),
+                     v.data_ptr(), g.data_ptr(),
+                     out + 4 * (width + slots * orders), out + 4 * width,
+                     out, n, slots, num_groups, orders,
+                     build.stream_handle(p.device))
     return buf[:width].view(num_groups, orders)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.config import on_card
 from . import build, ref
 
 #: tuple splits are sized so about this many (split, frequency block) work
@@ -34,6 +35,19 @@ FREQ_THREADS = 256      # csrc/cf.cuh kCfThreads
 #: largest N whose twiddle table logcf copies into shared memory (32 KB);
 #: above it the kernel reads the table from device memory (csrc/cf.cuh).
 DIRECT_TABLE_MAX = 4096
+#: float operations a (tuple, frequency) pair costs (the bound's count:
+#: re = q + p cos, im = p sin, |.|^2, the clamp, log, atan2 and the two
+#: accumulating adds; a transcendental counts one).
+OPS_PER_PAIR = 11
+
+
+def cost(n: int, num_freq: int, freq_cnt: int | None = None) -> tuple:
+    """(float operations, bytes) of one launch at its bound: every tuple
+    live at the N/2 + 1 computed frequencies (or the window's
+    ``freq_cnt``); probs and values read once, the two output rows
+    written once."""
+    _, cnt, whole = _window(num_freq, 0, freq_cnt)
+    return n * cnt * OPS_PER_PAIR, n * 8 + 2 * (num_freq if whole else cnt) * 4
 
 
 def phase_shift(num_freq: int) -> int:
@@ -113,8 +127,10 @@ def logcf(probs, values, *, num_freq: int, freq_lo: int = 0,
     freq_cnt) of the k <= N/2 frequencies, each (freq_cnt,), unmirrored.
     A CUDA tensor launches ``csrc/logcf.cu``; a CPU tensor computes
     :func:`logcf_plain`."""
-    if probs.device.type == "cpu":
+    if probs.device.type == "cpu" and not on_card(probs):
         return logcf_plain(probs, values, num_freq, freq_lo, freq_cnt)
+    fake = build.faked(probs, "logcf",
+                       *cost(probs.shape[0], num_freq, freq_cnt))
     lo, cnt, whole = _window(num_freq, freq_lo, freq_cnt)
     n = probs.shape[0]
     build.check_operand("logcf probs", probs, torch.float32)
@@ -128,12 +144,14 @@ def logcf(probs, values, *, num_freq: int, freq_lo: int = 0,
     part = buf[2 * num_freq:].view(2, splits, cnt)
     out = torch.empty((2, num_freq if whole else cnt), dtype=torch.float32,
                       device=dev)
-    build.launch("logcf_launch", probs.data_ptr(), a.data_ptr(),
-                 a2.data_ptr(), buf.data_ptr(), part[0].data_ptr(),
-                 part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n,
-                 num_freq, shift, barrett_magic(num_freq),
-                 int(num_freq <= DIRECT_TABLE_MAX), splits, lo, cnt,
-                 build.stream_handle(dev))
+    if not fake:
+        build.launch("logcf_launch", probs.data_ptr(), a.data_ptr(),
+                     a2.data_ptr(), buf.data_ptr(), part[0].data_ptr(),
+                     part[1].data_ptr(), out[0].data_ptr(),
+                     out[1].data_ptr(), n, num_freq, shift,
+                     barrett_magic(num_freq),
+                     int(num_freq <= DIRECT_TABLE_MAX), splits, lo, cnt,
+                     build.stream_handle(dev))
     logcf.launches += 1
     return out[0], out[1]
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.config import on_card
 from . import build, ref
 
 #: consecutive outputs per thread (``kRows`` in csrc/polymul.cu).
@@ -96,6 +97,13 @@ def tiling(na: int, nb: int) -> Tiling:
                   pitch=n_tiles * tile, cluster=0 if wide else MAX_CLUSTER)
 
 
+def cost(na: int, nb: int) -> tuple:
+    """(float operations, bytes) of one product at its bound: a
+    multiply-add a pair, both factors read once, the product written
+    once."""
+    return 2 * na * nb, 4 * (2 * na + 2 * nb - 1)
+
+
 def polymul_plain(a, b):
     """The plain PyTorch version: a loop over the shorter factor."""
     return ref.polymul_ref(a, b)
@@ -105,7 +113,7 @@ def polymul(a, b):
     """Linear convolution of two 1-D coefficient vectors, (na + nb - 1,).
     A CUDA tensor launches ``csrc/polymul.cu`` (float32 only); a CPU tensor
     computes :func:`polymul_plain`."""
-    if a.device.type == "cpu":
+    if a.device.type == "cpu" and not on_card(a):
         return polymul_plain(a, b)
     na, nb = a.shape[0], b.shape[0]
     if na < 1 or nb < 1:
@@ -114,6 +122,7 @@ def polymul(a, b):
     if nc > MAX_OUTPUT:
         raise ValueError(f"polymul: output length {nc} exceeds the kernel's "
                          f"int32 indexing ({MAX_OUTPUT})")
+    fake = build.faked(a, "polymul", *cost(na, nb))
     build.check_operand("polymul a", a, torch.float32)
     build.check_operand("polymul b", b, torch.float32)
     if b.device != a.device:
@@ -124,10 +133,11 @@ def polymul(a, b):
     partial = None if tl.cluster else torch.empty(
         (tl.n_slices * tl.pitch,), dtype=torch.float32, device=a.device)
     c = torch.empty((nc,), dtype=torch.float32, device=a.device)
-    build.launch("polymul_launch", a.data_ptr(), b.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 c.data_ptr(), na, nb, tl.threads, tl.slice, tl.chunk,
-                 tl.cluster, build.stream_handle(a.device))
+    if not fake:
+        build.launch("polymul_launch", a.data_ptr(), b.data_ptr(),
+                     None if partial is None else partial.data_ptr(),
+                     c.data_ptr(), na, nb, tl.threads, tl.slice, tl.chunk,
+                     tl.cluster, build.stream_handle(a.device))
     polymul.launches += 1
     return c
 

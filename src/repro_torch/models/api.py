@@ -19,6 +19,9 @@ the device.  The JAX package's parameter tree maps onto a model through
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -151,43 +154,68 @@ class Model(nn.Module):
                 aux = aux + a
         return x, aux
 
+    def _run_gathered(self, gather, blocks, x, positions, aux):
+        """:meth:`_run` with the blocks' parameters inside ``gather``
+        (under remat this runs again in the backward: it gathers again)."""
+        with gather(list(blocks)):
+            return self._run(blocks, x, positions, aux)
+
     def forward(self, tokens, cache=None, cache_len: int = 0,
-                remat: bool = False):
+                remat: bool = False, gather=None):
         """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
         cache (updated in place) or None, aux loss).  ``remat`` (without
         a cache) recomputes each segment's activations in the backward
         instead of keeping them (``torch.utils.checkpoint``); the values
-        and gradients are the same bits either way."""
+        and gradients are the same bits either way.  ``gather(modules)``
+        (``sharding.ShardedModel.gathered``; without a cache) is a context
+        in which the parameters of ``modules`` are whole: the pass enters
+        it for the embedding's lookup (for the whole pass when the head is
+        the embedding), for each segment (inside the checkpointed
+        function), and for the final norm and head."""
         cfg = self.cfg
-        if cfg.embedding_inputs:
-            x = tokens.to(cfg.torch_dtype)
-        else:
-            x = self.embed(tokens)
-        x = L.constrain(x, "residual")
-        t = x.shape[1]
-        positions = torch.arange(cache_len, cache_len + t, dtype=torch.int32,
-                                 device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cache is not None:
-            x, aux = self._run(self.layers, x, positions, aux,
-                               self.layer_caches(cache), cache_len)
-        else:
-            for seg in self.segments():
-                if remat:
-                    # the blocks draw no random numbers: no RNG state to
-                    # stash for the recomputation
-                    x, aux = checkpoint(
-                        self._run, seg, x, positions, aux,
-                        use_reentrant=False, preserve_rng_state=False,
-                        context_fn=sharding.recompute_context())
+        if gather is not None and cache is not None:
+            raise ValueError("a sharded decode step is "
+                             "ShardedModel.decode_step")
+        scope = gather or _whole
+        tied = self.head is None and self.embed is not None
+        with scope([self.embed] if tied else []):
+            if cfg.embedding_inputs:
+                x = tokens.to(cfg.torch_dtype)
+            else:
+                with scope([] if tied else [self.embed]):
+                    x = self.embed(tokens)
+            x = L.constrain(x, "residual")
+            t = x.shape[1]
+            positions = torch.arange(cache_len, cache_len + t,
+                                     dtype=torch.int32, device=x.device)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            if cache is not None:
+                x, aux = self._run(self.layers, x, positions, aux,
+                                   self.layer_caches(cache), cache_len)
+            else:
+                for seg in self.segments():
+                    run = functools.partial(self._run_gathered, scope, seg)
+                    if remat:
+                        # the blocks draw no random numbers: no RNG state
+                        # to stash for the recomputation
+                        x, aux = checkpoint(
+                            run, x, positions, aux, use_reentrant=False,
+                            preserve_rng_state=False,
+                            context_fn=sharding.recompute_context())
+                    else:
+                        x, aux = run(x, positions, aux)
+            with scope([self.final_norm, self.head]):
+                x = self.final_norm(x)
+                if self.head is not None:
+                    logits = self.head(x)
                 else:
-                    x, aux = self._run(seg, x, positions, aux)
-        x = self.final_norm(x)
-        if self.head is not None:
-            logits = self.head(x)
-        else:
-            logits = x @ self.embed.weight.T
+                    logits = x @ self.embed.weight.T
         return L.constrain(logits, "logits"), cache, aux
+
+
+def _whole(modules):
+    """The ``gather`` of a model that holds its parameters whole."""
+    return contextlib.nullcontext()
 
 
 def _check(cfg, model):
@@ -234,20 +262,24 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 # --------------------------------------------------------------- forward
 def forward(cfg, model, tokens, *, cache=None, cache_len: int = 0,
-            remat: bool = False):
+            remat: bool = False, gather=None):
     """tokens: (B, S) int or (B, S, D) embeddings.  Returns (logits,
     cache or None, aux_loss); a given cache is updated in place.
-    ``remat``: see :meth:`Model.forward`."""
+    ``remat``, ``gather``: see :meth:`Model.forward`."""
     _check(cfg, model)
-    return model(tokens, cache=cache, cache_len=cache_len, remat=remat)
+    return model(tokens, cache=cache, cache_len=cache_len, remat=remat,
+                 gather=gather)
 
 
-def loss_fn(cfg, model, tokens, labels, *, remat: bool = True):
+def loss_fn(cfg, model, tokens, labels, *, remat: bool = True,
+            gather=None):
     """Mean token cross-entropy + 0.01 x the MoE aux loss, and
     dict(ce=, aux=); differentiate it with ``loss.backward()``.  ``remat``
     checkpoints each period's blocks and each tail layer (the reference's
-    per-period ``jax.checkpoint``)."""
-    logits, _, aux = forward(cfg, model, tokens, remat=remat)
+    per-period ``jax.checkpoint``); ``gather``: see
+    :meth:`Model.forward`."""
+    logits, _, aux = forward(cfg, model, tokens, remat=remat,
+                             gather=gather)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -270,7 +302,14 @@ def prefill(cfg, model, tokens):
 @torch.no_grad()
 def decode_step(cfg, model, tokens, cache, cache_len: int):
     """One-token decode against the cache.  tokens (B,1) or (B,1,D).
-    Returns (logits, cache (updated in place), cache_len + 1)."""
+    Returns (logits, cache (updated in place), cache_len + 1).  A
+    :class:`repro_torch.sharding.ShardedModel` takes a cache of blocks
+    (its ``init_cache``) and runs under its rules: every rank passes the
+    global batch and gets the global logits."""
+    if isinstance(model, sharding.ShardedModel):
+        _check(cfg, model)
+        return model.decode_step(tokens, cache, cache_len), cache, \
+            cache_len + 1
     logits, cache, _ = forward(cfg, model, tokens, cache=cache,
                                cache_len=cache_len)
     return logits, cache, cache_len + 1

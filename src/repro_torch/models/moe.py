@@ -35,6 +35,13 @@ from . import layers as L
 from .mlp import MLP
 
 
+def _own(w, e0: int, e1: int):
+    """Experts [e0, e1) of an expert tensor: ``w`` itself when it holds
+    just those (a ``sharding.ShardedModel`` gathers only the rank's
+    block of a tensor split over the model axis)."""
+    return w if w.shape[0] == e1 - e0 else w[e0:e1]
+
+
 def capacity(cfg, tokens: int) -> int:
     c = int(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
     return max(8, -(-c // 8) * 8)  # round up to 8
@@ -127,10 +134,11 @@ class MoE(nn.Module):
         xf_pad = torch.cat([xe, xe.new_zeros(1, d)])
         buf = xf_pad[token_of_slot[e0:e1]]               # (E, C, D)
         buf = L.constrain(buf, "moe_buffer")
-        h = F.silu(torch.bmm(buf, self.experts_gate[e0:e1])) \
-            * torch.bmm(buf, self.experts_in[e0:e1])
+        w_gate, w_in, w_out = (_own(w, e0, e1) for w in (
+            self.experts_gate, self.experts_in, self.experts_out))
+        h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_in)
         h = L.constrain(h, "moe_hidden")
-        out_buf = torch.bmm(h, self.experts_out[e0:e1])  # (E, C, D)
+        out_buf = torch.bmm(h, w_out)                    # (E, C, D)
         out_buf = L.constrain(out_buf, "moe_buffer")
         out_buf = sharding.gather_blocks(out_buf, ax_m)
 

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import sharding
+from ..core.config import on_card
 from . import layers as L
 
 NEG_INF = -1e30
@@ -66,7 +67,7 @@ def _bmm_f32(a, b):
     :class:`_BmmF32`: serving calls the op directly."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.device.type == "cpu":
+    if a.device.type == "cpu" and not on_card(a):
         return torch.bmm(a.float(), b.float())
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _BmmF32.apply(a, b)

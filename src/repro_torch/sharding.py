@@ -30,12 +30,15 @@ How a rule becomes placement, by hand on the collectives of
   the spec of every parameter of a port ``Model``: the reference's spec
   of the same leaf (``models/convert.py``'s mapping) without the stacked
   period dim, reversed for an ``nn.Linear`` weight (``(out, in)``).
-* **A step** (:class:`ShardedModel`, ``train/trainer.py``) gathers every
-  parameter into a working model, runs the rank's rows of the batch (the
-  batch is split over the data axes by ``input_sharding("tokens")``),
-  and reduces each gradient to its block: summed over the data axes in
-  rank order (all-to-all or all-gather, then an ordered float32 sum, so
-  every replica holds the same bits), divided by the data-axis size.
+* **A step** (:class:`ShardedModel`, ``train/trainer.py``) runs the
+  rank's rows of the batch (split over the data axes by
+  ``input_sharding("tokens")``) one segment at a time: each segment's
+  parameters are gathered whole just before it runs and dropped after,
+  and when its backward ends each gradient is reduced to its block:
+  summed over the data axes in rank order (all-to-all or all-gather,
+  then an ordered float32 sum, so every replica holds the same bits),
+  divided by the data-axis size.  A decode step gathers one layer's
+  cache at a time (:func:`cache_shardings`).
   The model axis stores the parameters split; the ranks of one model
   row compute the dense layers whole, and split only the expert
   products (``models/moe.py``, whose routing is gathered over the data
@@ -412,6 +415,12 @@ class NamedSharding:
             out[i] = slice(idx * k, (idx + 1) * k)
         return tuple(out)
 
+    def block_shape(self, shape) -> tuple:
+        """The shape of this rank's block of a logical tensor of
+        ``shape``."""
+        return tuple(len(range(*s.indices(n))) for s, n in
+                     zip(self.block(shape), shape))
+
     def local(self, full: torch.Tensor, skip=()):
         """This rank's block of ``full`` (a new tensor), None off the
         mesh."""
@@ -427,17 +436,18 @@ class NamedSharding:
             x = _all_gather_dim(x, _group(self.mesh, axes), i, kind)
         return x
 
-    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+    def reduce(self, g: torch.Tensor, skip=()) -> torch.Tensor:
         """This rank's block of the mean over the data axes of every rank's
         full-shape ``g`` (float32): the own block of each dim split over a
-        model-like axis, then an ordered sum over the data axes (a
-        reduce-scatter along a dim split over them, a plain sum over the
-        rest), divided by their size.  The mean is the gradient of the
+        model-like axis (``g`` is that block already along ``skip``'s
+        axes), then an ordered sum over the data axes (a reduce-scatter
+        along a dim split over them, a plain sum over the rest), divided
+        by their size.  The mean is the gradient of the
         global batch's mean loss only because every rank holds the same
         number of rows (:func:`place_batch` refuses a batch that does not
         split evenly)."""
         dp = _dp_axes(self.mesh)
-        x = g[self.block(g.shape, skip=dp)]
+        x = g[self.block(g.shape, skip=dp + tuple(skip))]
         reduced = set()
         for i, axes in self._dims(g.dim()):
             split = tuple(a for a in axes if a in dp)
@@ -582,64 +592,234 @@ def state_shardings(rules: Rules, cfg, with_opt: bool = True) -> dict:
     return out
 
 
+def cache_shardings(rules: Rules, cache):
+    """The :class:`NamedSharding` of every leaf of a decode cache (the
+    reference's ``launch.cells._cache_shardings``, read on the stacked
+    layout of ``api.init_cache``): the batch (dim 1) over the data axes
+    where they divide it; KV heads over ``model``, else the sequence;
+    ``s``, ``h``, ``conv``, ``shift`` by the same divisibility tests.  The
+    tail's unstacked leaves get the same dims as the stacked ones, as in
+    the reference."""
+    mesh, dp = rules.mesh, rules.dp
+
+    def div(shape, i, ax):
+        return ax in mesh.axis_names and shape[i] % mesh.shape[ax] == 0
+
+    def spec_for(name, shape):
+        n_dp = math.prod(mesh.shape[a] for a in dp)
+        batch = dp if dp and len(shape) > 1 and shape[1] % n_dp == 0 \
+            else None
+        parts = [None, batch] + [None] * (len(shape) - 2)
+        if name in ("k", "v") and len(shape) == 5 and div(shape, 3, "model"):
+            parts[3] = "model"                      # (n, B, S, KV, hd)
+        elif name in ("k", "v") and len(shape) == 5 \
+                and div(shape, 2, "model"):
+            parts[2] = "model"                      # sequence-sharded cache
+        elif name == "s" and len(shape) == 5 and div(shape, 2, "model"):
+            parts[2] = "model"                      # (n, B, H, K, V)
+        elif name == "h" and len(shape) == 3 and div(shape, 2, "model"):
+            parts[2] = "model"                      # (n, B, W)
+        elif name == "conv" and len(shape) == 4 and div(shape, 3, "model"):
+            parts[3] = "model"
+        elif name in ("shift", "shift_c") and len(shape) == 3 \
+                and div(shape, 2, "model"):
+            parts[2] = "model"
+        return NamedSharding(mesh, P(*parts[:len(shape)]))
+
+    def visit(node, name=None):
+        if isinstance(node, dict):
+            return {k: visit(v, k) for k, v in node.items()}
+        return spec_for(name, tuple(node.shape))
+    return visit(cache)
+
+
+def block_shapes(cfg, rules: Rules) -> dict:
+    """{parameter name of a ``cfg`` model: (shape of this rank's block
+    under ``rules``, dtype)}."""
+    from .models.api import Model
+    shardings = rules.model_shardings(cfg)
+    return {name: (shardings[name].block_shape(p.shape), p.dtype)
+            for name, p in Model(cfg, device="meta").named_parameters()}
+
+
+class _GatherParams(torch.autograd.Function):
+    """The whole tensors of some parameters from this rank's blocks; the
+    backward reduces each one's gradient to its block
+    (:meth:`NamedSharding.reduce`, float32; then the model's
+    ``grad_convert``) into the model's ``pending`` gradients and passes
+    nothing on: the blocks are not autograd leaves (``anchor``, a 0-d
+    tensor that requires grad, makes the outputs require grad)."""
+
+    @staticmethod
+    def forward(ctx, sm, names, anchor, *blocks):
+        ctx.sm, ctx.names = sm, names
+        return tuple(sm.shardings[n].gather(b, skip=sm.split.get(n, ()))
+                     for n, b in zip(names, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sm = ctx.sm
+        for n, g in zip(ctx.names, grads):
+            if n in sm.pending:
+                raise RuntimeError(f"{n}: two gradients in one backward")
+            sm.pending[n] = sm._convert(n, sm.shardings[n].reduce(
+                g, skip=sm.split.get(n, ())))
+        return (None, None, None) + (None,) * len(grads)
+
+
 class ShardedModel:
     """A port ``Model``'s parameters placed by ``rules``.
 
     ``params`` holds this rank's block of every parameter (what the
-    optimizer updates and a checkpoint saves); ``work`` is the model
-    itself, whose parameters :meth:`gather_` fills with the whole tensors
-    before a step (the experts only with this rank's model block: the
-    other blocks are zeroed once and never read).  ``named_parameters``
-    yields the blocks, so ``AdamW.init(sharded)`` makes moments of their
-    shape.  The step is ``train/trainer.py``'s ``make_train_step``."""
+    optimizer updates and a checkpoint saves): the only copy this object
+    keeps.  ``work`` is the model's module tree on ``meta``: the code
+    that runs it, with no storage.  A step (``train/trainer.py``'s
+    ``make_train_step``), :meth:`prefill` and :meth:`decode_step` run it
+    one piece at a time inside :meth:`gathered`: each segment of
+    ``Model.segments()`` gathers its parameters right before it runs and
+    drops them after; the embedding is gathered for its lookup (for the
+    whole pass where the head reads it too), the final norm and the head
+    for the logits.  Under remat the recomputation gathers again, inside
+    the checkpointed function.  When a segment's backward ends, each of
+    its gradients is reduced to this rank's block (the ordered float32
+    sum of :meth:`NamedSharding.reduce`), passed through ``grad_convert``
+    where the step sets one (the step's dtype or accumulator: the float32
+    sums never wait all together), and waits in ``pending`` for
+    :meth:`take_grads`.  An expert tensor split over the model axis
+    (``split``) is gathered over the data axes only: the rank's block of
+    experts, which is all its MoE computes.  ``named_parameters`` yields
+    the blocks, so ``AdamW.init(sharded)`` makes moments of their shape.
+
+    Built from a whole model (``ShardedModel(model, rules)``: the model
+    is moved to ``meta``, its parameters live on as the blocks) or from
+    blocks alone (:meth:`from_blocks`, shapes from :func:`block_shapes`:
+    a rank allocates its blocks and nothing else, the way a run at
+    production scale starts)."""
 
     def __init__(self, model, rules: Rules):
-        self.cfg = model.cfg
-        self.rules = rules
+        self._setup(model.cfg, rules)
+        self.device = next(model.parameters()).device
+        with torch.no_grad():
+            self.params = {name: self.shardings[name].local(p)
+                           for name, p in model.named_parameters()}
+        model.to("meta")
         self.work = model
-        self.shardings = rules.model_shardings(model.cfg)
+        self._index()
+
+    @classmethod
+    def from_blocks(cls, cfg, rules: Rules, blocks: dict) -> "ShardedModel":
+        """A ``cfg`` model whose parameters are ``blocks`` ({name: this
+        rank's block}, :meth:`block_shapes`), held as they are: no whole
+        tensor is made anywhere."""
+        from .models.api import Model
+        self = cls.__new__(cls)
+        self._setup(cfg, rules)
+        self.work = Model(cfg, device="meta")
+        self.params = dict(blocks)
+        self._index()
+        self.device = next(iter(self.params.values())).device
+        return self
+
+    def _setup(self, cfg, rules: Rules) -> None:
+        from .models.api import Model
+        self.cfg = cfg
+        self.rules = rules
+        self.shardings = rules.model_shardings(cfg)
         self.split = {}
-        if rules.expert_axis(model.cfg) and rules.mesh.shape["model"] > 1:
+        if rules.expert_axis(cfg) and rules.mesh.shape["model"] > 1:
             self.split = {n: ("model",) for n, sh in self.shardings.items()
                           if sh.rule[0].split("/")[-1].startswith("experts_")}
-        self.shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-        self.params = {}
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                sh = self.shardings[name]
-                self.params[name] = sh.local(p)
-                if name in self.split:
-                    keep = p[sh.block(p.shape, skip=_dp_axes(rules.mesh))] \
-                        .clone()
-                    p.zero_()
-                    p[sh.block(p.shape, skip=_dp_axes(rules.mesh))] = keep
+        self.shapes = {n: tuple(p.shape) for n, p in
+                       Model(cfg, device="meta").named_parameters()}
+        #: gradients reduced to their blocks, waiting for take_grads
+        self.pending: dict = {}
+        #: ``fn(name, float32 block gradient)`` applied as each one is
+        #: reduced (None: kept in float32)
+        self.grad_convert = None
+
+    def _index(self) -> None:
+        """Where each parameter of ``work`` sits: (module, attribute) by
+        name, and the names under each module a pass gathers."""
+        self._slot = {}
+        for mname, mod in self.work.named_modules():
+            for attr in mod._parameters:
+                if mod._parameters[attr] is not None:
+                    self._slot[f"{mname}.{attr}" if mname else attr] = \
+                        (mod, attr)
+        self._names = {}
+        for mname, mod in self.work.named_modules():
+            pre = f"{mname}." if mname else ""
+            self._names[id(mod)] = [pre + n for n, _ in
+                                    mod.named_parameters()]
+        self._anchor = None
 
     def named_parameters(self):
         return iter(self.params.items())
 
+    @contextlib.contextmanager
+    def gathered(self, modules):
+        """Inside, the parameters of ``modules`` (submodules of ``work``;
+        None entries skipped) are the whole tensors gathered from the
+        blocks (:class:`_GatherParams`); they are dropped on exit."""
+        names = [n for m in modules if m is not None
+                 for n in self._names[id(m)]]
+        if not names:
+            yield
+            return
+        if self._anchor is None or self._anchor.device != self.device:
+            self._anchor = torch.zeros((), dtype=torch.float32,
+                                       device=self.device,
+                                       requires_grad=True)
+        full = _GatherParams.apply(self, tuple(names), self._anchor,
+                                   *(self.params[n] for n in names))
+        slots = [self._slot[n] for n in names]
+        kept = [mod._parameters[attr] for mod, attr in slots]
+        for (mod, attr), t in zip(slots, full):
+            mod._parameters[attr] = t
+        try:
+            yield
+        finally:
+            for (mod, attr), t in zip(slots, kept):
+                mod._parameters[attr] = t
+
+    def _convert(self, name: str, g: torch.Tensor):
+        return g if self.grad_convert is None else self.grad_convert(name, g)
+
+    def take_grads(self) -> dict:
+        """{name: this rank's block of the global batch's gradient}
+        (float32, or as ``grad_convert`` made it) from the last backward,
+        which are cleared; a parameter that backward did not reach gets
+        the reduced zeros."""
+        out = {}
+        for name in self.params:
+            g = self.pending.pop(name, None)
+            if g is None:
+                sh, skip = self.shardings[name], self.split.get(name, ())
+                full = sh.gather(torch.zeros_like(self.params[name]),
+                                 skip=skip)
+                g = self._convert(name, sh.reduce(full, skip=skip))
+            out[name] = g
+        self.pending.clear()
+        return out
+
     @torch.no_grad()
     def gather_(self) -> None:
-        """Fill the working model's parameters from every rank's block."""
+        """Give ``work`` real storage and fill it with the whole
+        parameters (the experts only with this rank's model block: the
+        other blocks are zero).  Not used by a step: for inspecting the
+        whole model and for comparisons with it."""
         dp = _dp_axes(self.rules.mesh)
+        if any(p.is_meta for p in self.work.parameters()):
+            self.work.to_empty(device=self.device)
         for name, p in self.work.named_parameters():
             sh = self.shardings[name]
             skip = self.split.get(name, ())
             full = sh.gather(self.params[name], skip=skip)
             if skip:
+                p.zero_()
                 p[sh.block(p.shape, skip=dp)] = full
             else:
                 p.copy_(full)
-
-    def reduce_grads(self) -> dict:
-        """{name: this rank's block of the global batch's gradient}
-        (float32, :meth:`NamedSharding.reduce`) from the working model's
-        ``.grad`` (each rank's own rows), which are cleared."""
-        out = {}
-        for name, p in self.work.named_parameters():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            out[name] = self.shardings[name].reduce(g)
-            p.grad = None
-        return out
 
     def mean_over_dp(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a per-rank scalar over the data axes (an ordered
@@ -698,16 +878,119 @@ class ShardedModel:
                 opt_state.mu[n].copy_(tree["opt"]["mu"][n].local)
                 opt_state.nu[n].copy_(tree["opt"]["nu"][n].local)
 
-    @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The global batch's logits (every rank gets them whole): each
-        rank runs its rows under the rules, the rows are gathered over the
-        data axes."""
-        self.gather_()
-        with self.rules.activate():
-            logits = self.work(place_batch(self.rules, tokens))[0]
+    # ------------------------------------------------------------ serving
+    def _rows(self, tokens: torch.Tensor):
+        """(this rank's rows of a global batch, the data-axis group to
+        gather results over, or None when every rank runs the whole
+        batch: no data axis, or a batch the data axes do not split)."""
         mesh = self.rules.mesh
         dp = tuple(a for a in self.rules.dp if mesh.shape[a] > 1)
-        if not dp:
+        n = math.prod(mesh.shape[a] for a in dp)
+        if not dp or tokens.shape[0] % n:
+            return tokens, None
+        return place_batch(self.rules, tokens), _group(mesh, dp)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, whole: bool = True):
+        """The global batch's logits (every rank gets them whole; with
+        ``whole`` False, this rank's rows of them): each rank runs its
+        rows under the rules, one segment's parameters gathered at a
+        time, and the rows are gathered over the data axes."""
+        with self.rules.activate():
+            rows, ax = self._rows(tokens)
+            logits = self.work(rows, gather=self.gathered)[0]
+        if ax is None or not whole:
             return logits
-        return _all_gather_dim(logits, _group(mesh, dp), 0, "tokens")
+        return _all_gather_dim(logits, ax, 0, "tokens")
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """This rank's blocks of a zero decode cache (``api.init_cache``'s
+        layout) under :func:`cache_shardings`: a tree of
+        :class:`Sharded`."""
+        from .models import api
+        full = api.init_cache(self.cfg, batch, max_len, dtype=dtype,
+                              device="meta")
+
+        def visit(node, sh):
+            if isinstance(node, dict):
+                return {k: visit(v, sh[k]) for k, v in node.items()}
+            local = torch.zeros(sh.block_shape(node.shape), dtype=node.dtype,
+                                device=self.device)
+            return Sharded(local, sh, node.shape, node.dtype)
+        return visit(full, cache_shardings(self.rules, full))
+
+    @contextlib.contextmanager
+    def _layer_cache(self, leaves: dict, period, ax):
+        """One layer's cache, whole for this rank's rows, from the blocks
+        of ``leaves`` ({name: :class:`Sharded`}, stacked over the periods
+        unless ``period`` is None); on exit the layer's writes go back into
+        this rank's blocks.  A leaf split over the data axes on its batch
+        dim is gathered over the other axes only; any other leaf (the
+        tail's, whose batch dim the reference's spec leaves whole) whole,
+        its updated rows gathered back over the data axes."""
+        dp = _dp_axes(self.rules.mesh)
+        out, back = {}, []
+        for k, leaf in leaves.items():
+            spec = leaf.sharding.spec
+            if period is not None:
+                spec = spec[1:]
+            sh = NamedSharding(self.rules.mesh, spec)
+            block = leaf.local if period is None else leaf.local[period]
+            spec = spec + (None,) * (block.dim() - len(spec))
+            on_batch = set(_entry_axes(spec[0])) == set(dp) and not any(
+                a in dp for e in spec[1:] for a in _entry_axes(e))
+            if ax is None or on_batch:
+                full = sh.gather(block, skip=dp if on_batch else ())
+                out[k] = full
+                back.append((block, sh, full, dp if on_batch else (), None))
+            else:
+                full = sh.gather(block)
+                n = full.shape[0] // ax.size
+                rows = full[ax.index * n:(ax.index + 1) * n].clone()
+                out[k] = rows
+                back.append((block, sh, rows, (), ax))
+        yield out
+        for block, sh, t, skip, rows_ax in back:
+            if rows_ax is not None:
+                t = _all_gather_dim(t, rows_ax, 0, "cache")
+            block.copy_(t[sh.block(t.shape, skip=skip)])
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache, cache_len: int):
+        """One-token decode of the global batch against a cache of blocks
+        (:meth:`init_cache`): every layer gathers its parameters and its
+        cache for this rank's rows, runs, and writes the new state back
+        into the blocks.  Returns the global logits (every rank gets
+        them whole); the cache is updated in place."""
+        from .models import layers as L
+        cfg, work = self.cfg, self.work
+        tied = work.head is None and work.embed is not None
+        p = len(cfg.pattern)
+        n_body = p * cfg.n_periods
+        with self.rules.activate():
+            rows, ax = self._rows(tokens)
+            with self.gathered([work.embed] if tied else []):
+                if cfg.embedding_inputs:
+                    x = rows.to(cfg.torch_dtype)
+                else:
+                    with self.gathered([] if tied else [work.embed]):
+                        x = work.embed(rows)
+                x = L.constrain(x, "residual")
+                positions = torch.arange(cache_len, cache_len + x.shape[1],
+                                         dtype=torch.int32, device=x.device)
+                for i, blk in enumerate(work.layers):
+                    if i < n_body:
+                        leaves, period = cache[str(i % p)], i // p
+                    else:
+                        leaves, period = cache["tail"][str(i - n_body)], None
+                    with self.gathered([blk]), \
+                            self._layer_cache(leaves, period, ax) as c:
+                        x, _ = blk(x, positions, c, cache_len)
+                with self.gathered([work.final_norm, work.head]):
+                    x = work.final_norm(x)
+                    logits = work.head(x) if work.head is not None \
+                        else x @ work.embed.weight.T
+                logits = L.constrain(logits, "logits")
+        if ax is not None:
+            logits = _all_gather_dim(logits, ax, 0, "tokens")
+        return logits

@@ -17,9 +17,11 @@ Given a :class:`repro_torch.sharding.ShardedModel` (the parameters
 placed by a ``Rules`` table on a mesh of ranks; every rank calls the step
 with the same global batch), the same step runs sharded: each
 microbatch's rows are split over the data axes, every rank runs
-``loss_fn`` on its rows with the parameters gathered, the gradients are
-reduced to each rank's blocks (the mean over the data axes), the clip
-reads the global norm, and AdamW updates each rank's blocks.  Loss, grad
+``loss_fn`` on its rows with each segment's parameters gathered from the
+blocks just before it runs (``ShardedModel.gathered``), each segment's
+gradients are reduced to the rank's blocks (the mean over the data axes)
+when its backward ends, the clip reads the global norm, and AdamW
+updates each rank's blocks.  Loss, grad
 norm and parameters equal the one-rank step's up to float rounding (the
 rows' sums run in another order); a rerun on the same mesh gives the same
 bits.
@@ -98,15 +100,19 @@ def make_train_step(cfg, opt: AdamW, *, accum: int = 1, remat: bool = True,
         the batch, each split over the data axes."""
         tokens, labels = batch["tokens"], batch["labels"]
 
-        def micro(tok, lab):
-            """(the global mean loss, this rank's gradient blocks)."""
+        def micro(tok, lab, convert):
+            """(the global mean loss, this rank's gradient blocks, each
+            passed through ``convert`` as its segment's backward ends)."""
             place = functools.partial(sharding.place_batch, model.rules)
-            l, _ = api.loss_fn(cfg, model.work, place(tok), place(lab),
-                               remat=remat)
-            l.backward()
-            return model.mean_over_dp(l), model.reduce_grads()
+            model.grad_convert = convert
+            try:
+                l, _ = api.loss_fn(cfg, model.work, place(tok), place(lab),
+                                   remat=remat, gather=model.gathered)
+                l.backward()
+                return model.mean_over_dp(l), model.take_grads()
+            finally:
+                model.grad_convert = None
 
-        model.gather_()
         if accum > 1:
             mb = tokens.shape[0] // accum
             div = torch.full((), accum, dtype=torch.float32,
@@ -114,17 +120,17 @@ def make_train_step(cfg, opt: AdamW, *, accum: int = 1, remat: bool = True,
             grads = {k: torch.zeros(p.shape, dtype=accum_dtype,
                                     device=p.device)
                      for k, p in model.params.items()}
+
+            def add(k, v):
+                return grads[k].add_((v / div).to(accum_dtype))
             loss = torch.zeros_like(div)
             for i in range(accum):
                 sl = slice(i * mb, (i + 1) * mb)
-                l, g = micro(tokens[sl], labels[sl])
-                with torch.no_grad():
-                    for k, v in g.items():
-                        grads[k] += (v / div).to(accum_dtype)
+                l, _ = micro(tokens[sl], labels[sl], add)
                 loss = loss + l / div
         else:
-            loss, g = micro(tokens, labels)
-            grads = {k: v.to(model.params[k].dtype) for k, v in g.items()}
+            loss, grads = micro(tokens, labels, lambda k, v: v.to(
+                model.params[k].dtype))
         grads, gnorm = clip_by_global_norm(grads, clip,
                                            model.global_norm(grads))
         opt.update(grads, opt_state, model.params)
