@@ -165,9 +165,16 @@ Twelve phases, each of which raises on a failed check (exit code != 0):
    (d) (a)'s state after step 2, saved under (2, 2) (full arrays),
    restored under (4, 1) with ``restore(shardings=)`` and resharded back
    with ``elastic.reshard``: every leaf bit-equal to the saved block; a
-   step after it bit-equal to (a)'s third.  The step gathers one
-   segment's parameters at a time (``ShardedModel.gathered``), so a
-   step's gather bytes are the parameters twice (remat gathers again).
+   step after it bit-equal to (a)'s third.  (e) yi_6b as in (a) on a
+   (1, 4) mesh (its 4 KV heads split four ways), against the same one
+   rank.  (f) yi_6b's 2 layers with float32 weights on (2, 2): a decode
+   of a 5-token prompt and 3 steps on a cache of blocks (KV heads over the
+   model axis) against one rank's, within ``MESH_DECODE_ATOL``.  The
+   model axis splits the compute (``sharding.py``'s module docstring:
+   heads, MLP width, vocabulary, experts; ``"tp"`` bytes), and the step
+   gathers one segment's parameters at a time (``ShardedModel.gathered``:
+   a parameter the layers compute on as its model block over the data
+   axes only), so remat gathers again.
 13. The dry-run (``launch/cells.py``, ``launch/dryrun.py``), started in
    subprocesses at the top of the run (``DryRuns``), beside phases 1-12.
    (a) ``DRYRUN_CELLS`` on both production meshes (fake process groups of
@@ -184,6 +191,13 @@ Twelve phases, each of which raises on a failed check (exit code != 0):
    version in phase 1), the output finite; ms a step beside the dry-run's
    dominant term.  (c) Phase 12's bytes received by kind, every rank and
    step, equal the dry-run of its configuration on a fake world of 4.
+14. The pgf cell (``db.distributed.make_query_step``) for real at 2^20
+   tuples, 4,096 groups and 2^16 CF frequencies: on a one-rank NCCL mesh
+   (1, 1), and on two gloo ranks sharing the card on (1, 2), whose model
+   axis splits the CF's frequencies (each rank's window through
+   ``group_logcf``).  Each run's launches equal its dry-run's (phase 13's
+   subprocesses), and the (1, 2) CF equals the (1, 1) CF within
+   ``CF_BOUND``.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -3379,7 +3393,11 @@ def train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
 #: sharing the card; (d) saves after step ``save_after`` and restores
 #: under ``restore_shape``.
 LM_MESH = dict(arch="yi_6b", moe="olmoe_1b_7b", layers=2, batch=4, seq=512,
-               steps=3, shape=(2, 2), restore_shape=(4, 1), save_after=2)
+               steps=3, shape=(2, 2), restore_shape=(4, 1), save_after=2,
+               wide_shape=(1, 4), prompt=5, decode=3)
+#: (f): the sharded decode's logits against one rank's (float32 weights;
+#: tests/test_torch_fsdp.py's ATOL)
+MESH_DECODE_ATOL = 5e-5
 #: (a), (b): the mesh's loss and grad norm against one rank's on the card,
 #: relative (bf16: the rows' sums run in another order on the mesh)
 MESH_LOSS_RTOL = 1e-2
@@ -3491,6 +3509,8 @@ def mesh_train_rank(out_dir, dev) -> dict:
                      device=dev)
     other = make_mesh(c["restore_shape"], ("data", "model"), backend="gloo",
                       device=dev)
+    wide = make_mesh(c["wide_shape"], ("data", "model"), backend="gloo",
+                     device=dev)
     rules = sharding.Rules(mesh, fsdp=True)
     ckdir = pathlib.Path(out_dir) / "mesh_ckpt"
     out = dict(rank=rank, coords=mesh.coords)
@@ -3564,9 +3584,67 @@ def mesh_train_rank(out_dir, dev) -> dict:
     del r
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (e) yi_6b on (1, 4): heads (its 4 KV heads divide the axis), MLP
+    # width and vocabulary split four ways
+    cfg = mesh_cfg(c["arch"])
+    r = mesh_run(cfg, sharding.Rules(wide, fsdp=True), dev)
+    out["e"] = {k: r[k] for k in ("ms", "loss", "grad_norm", "bytes")}
+    out["e"]["shard_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in r["model"].params.values())
+    out["e"]["first_fit"] = r["model"].rules.layouts.get("first_fit")
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the sharded decode on (2, 2) against one rank's
+    out["f"] = mesh_decode(rules, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = ops.launches()
+    return out
+
+
+def mesh_decode(rules, dev) -> dict:
+    """(f) yi_6b's 2 layers at full width with float32 weights (seed 0):
+    ``decode`` steps after a ``prompt`` fed token by token, the sharded
+    model (a cache of blocks: the KV heads over the model axis) against
+    the same model on this rank; max |logits - one rank's| over the steps,
+    and ms a sharded step."""
+    import dataclasses
+    import torch
+    from repro_torch import sharding
+    from repro_torch.models import api
+    c = LM_MESH
+    cfg = dataclasses.replace(mesh_cfg(c["arch"]), dtype="float32")
+    n = c["prompt"] + c["decode"]
+
+    def model():
+        return api.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    one, sm = model(), sharding.ShardedModel(model(), rules)
+    gen = torch.Generator(dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (c["batch"], n),
+                           generator=gen, device=dev)
+    cache = api.init_cache(cfg, c["batch"], n, dtype=torch.float32,
+                           device=dev)
+    blocks = sm.init_cache(c["batch"], n, dtype=torch.float32)
+    err, ms = 0.0, []
+    sharding.reset_collective_bytes()
+    for t in range(n):
+        tok = tokens[:, t:t + 1]
+        want, cache, _ = api.decode_step(cfg, one, tok, cache, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, blocks, _ = api.decode_step(cfg, sm, tok, blocks, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, float((got - want).abs().max()))
+    cache_spec = blocks["0"]["k"].sharding.spec
+    out = dict(err=err, ms=ms, bytes=dict(sharding.COLLECTIVE_BYTES),
+               cache_spec=cache_spec)
+    del one, sm, cache, blocks
     return out
 
 
@@ -3587,7 +3665,7 @@ def mesh_close(what: str, mesh: dict, one: dict) -> dict:
 
 
 def mesh_line(what: str, cfg, ranks: list, key: str, one: dict,
-              err: dict, card: str) -> dict:
+              err: dict, card: str, shape=None) -> dict:
     ms = [max(r[key]["ms"][i] for r in ranks)
           for i in range(LM_MESH["steps"])]
     step_ms = sum(ms[1:]) / len(ms[1:])
@@ -3598,7 +3676,7 @@ def mesh_line(what: str, cfg, ranks: list, key: str, one: dict,
     c = LM_MESH
     print(f"LM mesh {what} {cfg.name} at full widths, {cfg.n_layers} layers "
           f"({cfg.param_count() / 1e9:.3f} B params), bf16, "
-          f"{c['batch']} x {c['seq']} tokens, {c['shape']} "
+          f"{c['batch']} x {c['seq']} tokens, {shape or c['shape']} "
           f"('data', 'model') mesh of 4 gloo ranks on one card: "
           f"{step_ms:.1f} ms a step (slowest rank; steps "
           + ", ".join(f"{t:.1f}" for t in ms) + f"; one rank {one_ms:.1f} "
@@ -3649,6 +3727,33 @@ def mesh_train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
     report["b"]["drops"] = moe_one["drops"]
     for key in ("a", "b"):
         report[key]["rank_bytes"] = [r[key]["bytes"] for r in ranks]
+    report["e"] = mesh_line("(e)", mesh_cfg(LM_MESH["arch"]), ranks, "e",
+                            one, mesh_close("LM mesh (e)", ranks[0]["e"],
+                                            one), card,
+                            shape=LM_MESH["wide_shape"])
+    report["e"]["first_fit"] = ranks[0]["e"]["first_fit"]
+    report["e"]["rank_bytes"] = [r["e"]["bytes"] for r in ranks]
+    check(all(r["e"]["loss"] == ranks[0]["e"]["loss"] for r in ranks),
+          "LM mesh (e): the ranks report other metrics")
+    dec = [r["f"] for r in ranks]
+    check(all(d["err"] <= MESH_DECODE_ATOL for d in dec),
+          f"LM mesh (f): decode logits off one rank's by "
+          f"{[d['err'] for d in dec]} (bound {MESH_DECODE_ATOL})")
+    dec_ms = [max(d["ms"][i] for d in dec) for i in range(len(dec[0]["ms"]))]
+    report["f"] = dict(err=[d["err"] for d in dec], ms=dec_ms,
+                       bytes=[d["bytes"] for d in dec],
+                       cache_spec=dec[0]["cache_spec"])
+    c = LM_MESH
+    print(f"LM mesh (f) {c['arch']} {c['layers']} layers at full width, "
+          f"float32 weights, decode of {c['batch']} rows ({c['prompt']} "
+          f"prompt tokens fed one a step, then {c['decode']} steps) on "
+          f"{c['shape']}, cache spec {dec[0]['cache_spec']}: max |logits - "
+          f"one rank's| {max(report['f']['err']):.3e} (bound "
+          f"{MESH_DECODE_ATOL}); ms a step (slowest rank) "
+          + ", ".join(f"{t:.1f}" for t in dec_ms) + "; bytes received, "
+          "all steps, rank 0: " + ", ".join(
+              f"{k} {v / 1e6:.3f} MB" for k, v in
+              sorted(dec[0]["bytes"].items())) + f" [{card}]")
     print(f"LM mesh (b) dropped (token, choice) pairs after the first step, "
           f"by layer: {drops[0]} on every rank, one rank {moe_one['drops']}"
           f" (equal: the routing is global)")
@@ -3711,7 +3816,8 @@ PEAK_ATOL = 1 << 30
 def dryrun_commands(out_dir) -> dict:
     """The dry-run invocations of phase 13: (a) the subset on both
     production meshes, (b) each card cell at its settings on (1, 1), (c)
-    phase 12's configuration (LM_MESH) on a fake world of 4."""
+    phase 12's configuration (LM_MESH) on a fake world of 4; and phase
+    14's: (d) the pgf cell at PGF_MESH's size on each of its meshes."""
     base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     d = pathlib.Path(out_dir) / "dryrun"
     b = []
@@ -3722,6 +3828,10 @@ def dryrun_commands(out_dir) -> dict:
             cmd += [f"--{k.replace('_', '-')}", str(v)]
         b.append(cmd)
     c = LM_MESH
+    pgf = [base + ["--arch", "pgf_tpch", "--shape", "query", "--mesh",
+                   "x".join(map(str, shape)), "--n-tuples",
+                   str(PGF_MESH["n_tuples"]), "--out", str(d / "d")]
+           for shape in PGF_MESH["shapes"]]
     return dict(
         a=[base + ["--cells", ",".join(DRYRUN_CELLS), "--both-meshes",
                    "--calibrate-only", ",".join(DRYRUN_CALIBRATED),
@@ -3731,7 +3841,7 @@ def dryrun_commands(out_dir) -> dict:
                         "x".join(map(str, c["shape"])), "--layers",
                         str(c["layers"]), "--batch", str(c["batch"]),
                         "--seq", str(c["seq"]), "--accum", "1", "--out",
-                        str(d / "c")]])
+                        str(d / "c")]] + pgf)
 
 
 class DryRuns:
@@ -3968,6 +4078,116 @@ def dryrun_phase(card: str, runs: "DryRuns", mesh_train: dict) -> dict:
     return report
 
 
+# ------------------------------------- phase 14: the pgf cell on meshes
+#: the pgf cell run for real at 2^20 tuples (the config's 2^16 CF
+#: frequencies and 4,096 groups) on a one-rank NCCL mesh and on two gloo
+#: ranks sharing the card, whose model axis splits the CF's frequencies
+PGF_MESH = dict(n_tuples=1 << 20, shapes=((1, 1), (1, 2)))
+
+
+def pgf_run(mesh) -> dict:
+    """Two runs of the pgf cell on ``mesh`` from the seeded columns
+    (``card_cell_args``): the first counted (ms, the launches it made, the
+    CF's coefficients on the host, finite), the second timed (ms)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells as C
+    cell = C.build_pgf_cell(mesh, n_tuples=PGF_MESH["n_tuples"])
+    args = card_cell_args(cell, "pgf_tpch", mesh.device)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = cell.fn(**args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in ops.launches().items() if v}
+    finite = all(bool(torch.isfinite(t).all()) for t in res
+                 if torch.is_tensor(t) and t.is_floating_point())
+    coeffs = res[3].cpu()
+    del res
+    t0 = time.perf_counter()
+    cell.fn(**args)
+    torch.cuda.synchronize()
+    return dict(counted_ms=ms, ms=(time.perf_counter() - t0) * 1e3,
+                launches=launches, coeffs=coeffs, finite=finite)
+
+
+def pgf_mesh_rank(dev) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(PGF_MESH["shapes"][1], ("data", "model"),
+                     backend="gloo", device=dev)
+    return pgf_run(mesh)
+
+
+def pgf_mesh_phase(card: str, runs: "DryRuns", out_dir) -> dict:
+    """Phase 14 (module docstring)."""
+    import shutil
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing.ranks import run_ranks
+    t_phase = time.perf_counter()
+    dry = runs.results("d")
+    store = ROOT / "build" / "chip_smoke" / "phase14_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    tdist.init_process_group("nccl", store=tdist.FileStore(str(store), 1),
+                             rank=0, world_size=1,
+                             device_id=torch.device("cuda", 0))
+    try:
+        one = pgf_run(make_mesh(PGF_MESH["shapes"][0], ("data", "model"),
+                                backend="nccl", device="cuda:0"))
+    finally:
+        tdist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rstore = pathlib.Path(out_dir) / "pgf_mesh"
+    shutil.rmtree(rstore, ignore_errors=True)
+    ranks = run_ranks(pgf_mesh_rank, 2, backend="gloo", device="cuda",
+                      store_dir=rstore, args=("cuda",), timeout=600)
+    shutil.rmtree(rstore, ignore_errors=True)
+    tags = ["x".join(map(str, s)) for s in PGF_MESH["shapes"]]
+    want = [{k: v for k, v in dry[f"pgf_tpch/query@{t}"]["launches"].items()
+             if v} for t in tags]
+    err = float((ranks[0]["coeffs"] - one["coeffs"]).abs().max())
+    check(one["finite"] and all(r["finite"] for r in ranks),
+          "phase 14: pgf output not finite")
+    check(one["launches"] == want[0],
+          f"phase 14 (1, 1): launches {one['launches']} against the "
+          f"dry-run's {want[0]}")
+    check(all(r["launches"] == want[1] for r in ranks),
+          f"phase 14 (1, 2): launches {[r['launches'] for r in ranks]} "
+          f"against the dry-run's {want[1]}")
+    check("group_logcf" in want[1], "phase 14: the (1, 2) dry-run reaches "
+          f"no group_logcf: {want[1]}")
+    check(all(torch.equal(r["coeffs"], ranks[0]["coeffs"]) for r in ranks),
+          "phase 14 (1, 2): the ranks' CFs differ")
+    check(err <= CF_BOUND, f"phase 14: the (1, 2) CF off the (1, 1) CF by "
+          f"{err:.3e} (bound {CF_BOUND})")
+    launches = dict(one["launches"])
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report = dict(one_ms=one["ms"], mesh_ms=max(r["ms"] for r in ranks),
+                  one_counted_ms=one["counted_ms"],
+                  mesh_counted_ms=max(r["counted_ms"] for r in ranks),
+                  launches_one=one["launches"],
+                  launches_mesh=[r["launches"] for r in ranks],
+                  cf_err=err, launches=launches,
+                  seconds=time.perf_counter() - t_phase)
+    print(f"phase 14 pgf_tpch/query, {PGF_MESH['n_tuples']} tuples, 4096 "
+          f"groups, 2^16 CF frequencies: (1, 1) NCCL {one['ms']:.1f} ms "
+          f"(counted run {one['counted_ms']:.1f}), launches "
+          f"{one['launches']} (= dry-run); (1, 2) two gloo ranks on one "
+          f"card {report['mesh_ms']:.1f} ms (slowest rank; counted run, "
+          f"the rank's first, {report['mesh_counted_ms']:.1f}), "
+          f"launches a rank {ranks[0]['launches']} (= dry-run); CF max "
+          f"|(1, 2) - (1, 1)| {err:.3e} (bound {CF_BOUND}); "
+          f"{report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3994,7 +4214,7 @@ def main() -> int:
 
 
 def run(out_dir, dryruns) -> int:
-    """Phases 1-13 (module docstring)."""
+    """Phases 1-14 (module docstring)."""
     import numpy as np
     import torch
     from repro_torch.db import tpch
@@ -4122,16 +4342,21 @@ def run(out_dir, dryruns) -> int:
     torch.cuda.empty_cache()
 
     report["dryrun"] = dryrun_phase(card, dryruns, report["mesh_train"])
+    torch.cuda.empty_cache()
+
+    report["pgf_mesh"] = pgf_mesh_phase(card, dryruns, out_dir)
 
     # launches: the runs of the TPC-H path, the value-layer path, the
     # streamed path, the mesh path (every rank), the serving path, the
-    # training path, the LM mesh (every rank) and phase 13's card cells.
+    # training path, the LM mesh (every rank), phase 13's card cells and
+    # phase 14's pgf runs (every rank).
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
     serving_launches = report["serving"]["launches"]
     train_launches = report["train"]["launches"]
     lm_mesh_launches = report["mesh_train"]["launches"]
+    pgf_mesh_launches = report["pgf_mesh"]["launches"]
     cell_launches = {k: sum(c["launches"].get(k, 0) for c in
                             report["dryrun"]["b"].values())
                      for k in launches}
@@ -4144,7 +4369,8 @@ def run(out_dir, dryruns) -> int:
                             launches=launches[name] + value_launches[name]
                             + stream_launches[name] + mesh_launches[name]
                             + serving_launches[name] + train_launches[name]
-                            + lm_mesh_launches[name] + cell_launches[name],
+                            + lm_mesh_launches[name] + cell_launches[name]
+                            + pgf_mesh_launches.get(name, 0),
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

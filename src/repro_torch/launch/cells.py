@@ -14,10 +14,10 @@ plus the paper's own ``pgf_tpch`` cell (the distributed aggregate-query
 step, ``db.distributed.make_query_step``).
 
 Memory posture knobs per arch (:func:`arch_knobs`, the reference's): FSDP
-always on; SP-style residual sharding and bf16 Adam moments for d_model
->= 5120; bf16 gradient accumulation and accum=8 for the 340B config.
-``sp`` is recorded in the rules and moves nothing (``sharding.py``'s
-module docstring: the model axis's ranks compute the dense layers whole).
+always on; SP-style residual sharding (the residual stream held split on
+``d_model`` over the model axis between sublayers) and bf16 Adam moments
+for d_model >= 5120; bf16 gradient accumulation and accum=8 for the 340B
+config.
 
 A cell's ``args`` are ``meta`` stand-ins of what one rank's ``fn`` is
 given: this rank's blocks of the parameters, optimizer state and decode

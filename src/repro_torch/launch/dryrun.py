@@ -417,8 +417,9 @@ def summary(res: dict) -> str:
 def table(directory) -> str:
     """The markdown table of a directory of artifacts (``--out``): a row a
     cell, and for each mesh the peak a device (GB, against 80), the
-    dominant roofline term with its seconds, and the FLOPs over the
-    model's (6 N T or 2 N T over the chips)."""
+    dominant roofline term with its seconds, the FLOPs over the model's
+    (6 N T or 2 N T over the chips), and the bytes a device received
+    through the model axis's exchanges (``tp``, GB)."""
     import glob
     rows: dict = {}
     meshes: list = []
@@ -428,25 +429,28 @@ def table(directory) -> str:
         if res["mesh"] not in meshes:
             meshes.append(res["mesh"])
         if "error" in res:
-            rows.setdefault(res["cell"], {})[res["mesh"]] = "failed"
+            rows.setdefault(res["cell"], {})[res["mesh"]] = \
+                "failed | - | - | -"
             continue
         r = res["roofline"]
         model = res.get("model_flops_per_device")
         ratio = f"{r['flops'] / model:.2f}x" if model else "-"
         peak = f"{res['memory']['peak'] / 1e9:.1f}" if res["memory"] \
             else "not traced"
+        tp = res["collectives"]["bytes"].get("tp", 0) / 1e9
         rows.setdefault(res["cell"], {})[res["mesh"]] = (
             f"{peak} | {r['dominant']} "
-            f"{r['t_' + r['dominant']]:.3g} s | {ratio}")
+            f"{r['t_' + r['dominant']]:.3g} s | {ratio} | {tp:.3g}")
     meshes.sort(key=len)
     head = "| cell | " + " | ".join(
-        f"{m}: peak GB | dominant | FLOPs / model's" for m in meshes) + " |"
-    out = [head, "|---" * (1 + 3 * len(meshes)) + "|"]
+        f"{m}: peak GB | dominant | FLOPs / model's | tp GB"
+        for m in meshes) + " |"
+    out = [head, "|---" * (1 + 4 * len(meshes)) + "|"]
     from .cells import all_cells
     order = {f"{a}/{s}": i for i, (a, s) in enumerate(all_cells())}
     for cell in sorted(rows, key=lambda c: order.get(c, len(order))):
         out.append(f"| {cell} | " + " | ".join(
-            rows[cell].get(m, "- | - | -") for m in meshes) + " |")
+            rows[cell].get(m, "- | - | - | -") for m in meshes) + " |")
     return "\n".join(out)
 
 

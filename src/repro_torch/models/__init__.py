@@ -13,10 +13,13 @@
 
 Plain PyTorch on any device: no custom kernel lies on this path (the JAX
 package computes it in plain ``jnp`` too); on the card the attention
-products' gradient is ``transformer._BmmF32``'s.  The sharding hooks
-(``layers.constrain``) read :mod:`repro_torch.sharding`'s active rules;
-``runmode.py`` (XLA cost calibration) has no counterpart yet (ROADMAP
-Queue 1 item 6c, part 2).
+products' gradient is ``layers._BmmF32``'s.  The sharding hooks
+(``layers.constrain``) and the model-axis helpers (``layers.Split``, each
+layer's plan from its ``model_blocks``; ``column_input``, ``row_output``,
+...) read :mod:`repro_torch.sharding`'s active rules: under a model axis
+each layer computes its share.
+``runmode.py`` (XLA cost calibration) needs no counterpart (the dry-run
+counts every iteration of the port's Python loops).
 """
 from . import (api, convert, frontends, layers, mlp, moe, rglru, rwkv6,
                transformer)

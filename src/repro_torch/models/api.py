@@ -23,6 +23,7 @@ import contextlib
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -69,15 +70,18 @@ class Block(nn.Module):
 
     def forward(self, x, positions, cache=None, cache_len: int = 0):
         """Returns (x, aux or None); ``cache`` (this layer's) is written in
-        place."""
-        h = self.norm1(x)
+        place.  A sequence-parallel residual is gathered whole before each
+        norm, and each sublayer returns its output in the residual's
+        layout."""
+        d = self.cfg.d_model
+        h = self.norm1(L.whole_residual(x, d))
         if self.kind in ("attn", "attn_local"):
             mixed = self.mixer(h, positions, cache, cache_len)
         else:
             mixed = self.mixer(h, cache)
         x = x + mixed
 
-        h2 = self.norm2(x)
+        h2 = self.norm2(L.whole_residual(x, d))
         aux = None
         if self.cfg.n_experts:
             out, aux = self.ffn(h2)
@@ -112,6 +116,42 @@ class Model(nn.Module):
         self.head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
                               device=device, dtype=dt) \
             if not cfg.tie_embeddings or cfg.embedding_inputs else None
+
+    def model_blocks(self, m: int) -> list:
+        """The embedding and head, computed on their vocabulary blocks on a
+        model axis that divides the vocabulary."""
+        if m == 1 or self.cfg.vocab_size % m:
+            return []
+        return [f"{n}.weight" for n in ("embed", "head")
+                if getattr(self, n) is not None]
+
+    def _lookup(self, tokens):
+        """The embedding of ``tokens`` in the residual's layout: on a
+        split vocabulary each rank looks up the tokens of its block (the
+        others masked to zero) and the rows are summed over the model axis
+        (an ordered float32 sum: one term is nonzero)."""
+        split = L.Split(self)
+        if not split:
+            return L.to_residual(self.embed(tokens))
+        w = split.own("embed.weight")
+        n = w.shape[0]
+        idx = tokens.long() - split.ax.index * n
+        inside = (idx >= 0) & (idx < n)
+        part = F.embedding(idx.clamp(0, n - 1), w)
+        part = torch.where(inside[..., None], part.float(), 0.0)
+        return L.parts_to_residual(part, w.dtype)
+
+    def _logits(self, x):
+        """The logits of the final norm's output: on a split vocabulary
+        this rank's block of them (``head``'s rows, or the tied
+        embedding's)."""
+        split = L.Split(self)
+        if split:
+            name = "head" if self.head is not None else "embed"
+            return F.linear(L.column_input(x), split.own(f"{name}.weight"))
+        if self.head is not None:
+            return self.head(x)
+        return x @ self.embed.weight.T
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -180,11 +220,10 @@ class Model(nn.Module):
         tied = self.head is None and self.embed is not None
         with scope([self.embed] if tied else []):
             if cfg.embedding_inputs:
-                x = tokens.to(cfg.torch_dtype)
+                x = L.to_residual(tokens.to(cfg.torch_dtype))
             else:
                 with scope([] if tied else [self.embed]):
-                    x = self.embed(tokens)
-            x = L.constrain(x, "residual")
+                    x = self._lookup(tokens)
             t = x.shape[1]
             positions = torch.arange(cache_len, cache_len + t,
                                      dtype=torch.int32, device=x.device)
@@ -205,11 +244,8 @@ class Model(nn.Module):
                     else:
                         x, aux = run(x, positions, aux)
             with scope([self.final_norm, self.head]):
-                x = self.final_norm(x)
-                if self.head is not None:
-                    logits = self.head(x)
-                else:
-                    logits = x @ self.embed.weight.T
+                x = self.final_norm(L.whole_residual(x, cfg.d_model))
+                logits = self._logits(x)
         return L.constrain(logits, "logits"), cache, aux
 
 
@@ -274,15 +310,28 @@ def forward(cfg, model, tokens, *, cache=None, cache_len: int = 0,
 def loss_fn(cfg, model, tokens, labels, *, remat: bool = True,
             gather=None):
     """Mean token cross-entropy + 0.01 x the MoE aux loss, and
-    dict(ce=, aux=); differentiate it with ``loss.backward()``.  ``remat``
+    dict(ce=, aux=); differentiate it with ``loss.backward()``.  Logits
+    split over the model axis (their vocabulary block) take the split
+    log-sum-exp and the gold logit from the rank that owns it.  ``remat``
     checkpoints each period's blocks and each tail layer (the reference's
     per-period ``jax.checkpoint``); ``gather``: see
     :meth:`Model.forward`."""
     logits, _, aux = forward(cfg, model, tokens, remat=remat,
                              gather=gather)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    split = L.Split(model)
+    if not split:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        # a vocabulary split over the model axis: no rank holds (B, S, V)
+        ax, n = split.ax, logits.shape[-1]
+        logz = sharding.split_logsumexp(logits, ax)
+        lab = labels.long() - ax.index * n
+        inside = (lab >= 0) & (lab < n)
+        gold = torch.gather(logits, -1, lab.clamp(0, n - 1)[..., None])
+        gold = sharding.sum_parts(torch.where(inside, gold[..., 0], 0.0),
+                                  ax)
     ce = (logz - gold).mean()
     return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 

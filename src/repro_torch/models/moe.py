@@ -21,8 +21,10 @@ rank, and each rank combines the outputs of its own rows.  The expert
 products run split over the model axis when the rule splits the experts
 (``Rules.expert_axis``): each model rank fills and runs the dispatch
 buffer of its block of experts, and the outputs are gathered over the
-model axis.  ``dropped`` holds the last forward's count of dropped
-(token, choice) pairs (a 0-d tensor on the device, global under a mesh).
+model axis.  The input is the whole (gathered) residual on a
+sequence-parallel mesh; the output goes back to its layout.
+``dropped`` holds the last forward's count of dropped (token, choice)
+pairs (a 0-d tensor on the device, global under a mesh).
 """
 from __future__ import annotations
 
@@ -33,13 +35,6 @@ from torch import nn
 from .. import sharding
 from . import layers as L
 from .mlp import MLP
-
-
-def _own(w, e0: int, e1: int):
-    """Experts [e0, e1) of an expert tensor: ``w`` itself when it holds
-    just those (a ``sharding.ShardedModel`` gathers only the rank's
-    block of a tensor split over the model axis)."""
-    return w if w.shape[0] == e1 - e0 else w[e0:e1]
 
 
 def capacity(cfg, tokens: int) -> int:
@@ -64,8 +59,15 @@ class MoE(nn.Module):
         self.experts_gate = nn.Parameter(torch.empty(e, d, f, **kw))
         self.experts_out = nn.Parameter(torch.empty(e, f, d, **kw))
         self.shared = (MLP(cfg, cfg.d_ff * cfg.n_shared_experts,
-                           device=device)
+                           device=device, whole_output=True)
                        if cfg.n_shared_experts else None)
+
+    def model_blocks(self, m: int) -> list:
+        """The expert tensors, split over a model axis that divides the
+        experts (``Rules.expert_axis``)."""
+        if m == 1 or self.cfg.n_experts % m:
+            return []
+        return ["experts_in", "experts_gate", "experts_out"]
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -130,17 +132,19 @@ class MoE(nn.Module):
             slot_valid, sorted_tok[slot_src.clamp(0, k * n_tok - 1)], n_tok)
 
         # the model ranks each run their experts' part of what reads xg
-        xe = sharding.sum_grad(xg, ax_m)
+        xe = sharding.sum_grad(xg, ax_m, "tokens")
         xf_pad = torch.cat([xe, xe.new_zeros(1, d)])
         buf = xf_pad[token_of_slot[e0:e1]]               # (E, C, D)
         buf = L.constrain(buf, "moe_buffer")
-        w_gate, w_in, w_out = (_own(w, e0, e1) for w in (
-            self.experts_gate, self.experts_in, self.experts_out))
+        split = L.Split(self)
+        w_gate, w_in, w_out = (split.own(n) if split else getattr(self, n)
+                               for n in ("experts_gate", "experts_in",
+                                         "experts_out"))
         h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_in)
         h = L.constrain(h, "moe_hidden")
         out_buf = torch.bmm(h, w_out)                    # (E, C, D)
         out_buf = L.constrain(out_buf, "moe_buffer")
-        out_buf = sharding.gather_blocks(out_buf, ax_m)
+        out_buf = sharding.gather_blocks(out_buf, ax_m, 0, "tokens")
 
         # combine: per-token gather of its k expert outputs (own rows)
         slot_of = (idx * c + pos_flat.reshape(k, n_tok).T)[r0:r1]  # (T, k)
@@ -150,4 +154,4 @@ class MoE(nn.Module):
 
         if self.shared is not None:
             yf = yf + self.shared(xf[None]).float()[0]
-        return L.constrain(yf.reshape(b, t, d).to(x.dtype), "residual"), aux
+        return L.to_residual(yf.reshape(b, t, d).to(x.dtype)), aux

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from . import layers as L
 
 RGLRU_C = 8.0
@@ -52,24 +53,36 @@ class RGLRU(nn.Module):
         # Lambda so that a = sigmoid(Lambda)^c is in ~[0.9, 0.999]
         self.lam.copy_(torch.linspace(2.0, 6.0, w, device=self.lam.device))
 
-    def _conv_causal(self, u, tail=None):
+    def model_blocks(self, m: int) -> list:
+        """The parameters computed on as their model-axis blocks: the
+        width split's."""
+        if m == 1 or self.lam.shape[0] % m:
+            return []
+        return ["w_x.weight", "w_y.weight", "w_a.weight", "w_ix.weight",
+                "w_rnn_out.weight"]
+
+    @staticmethod
+    def _conv_causal(u, conv_w, conv_b, tail=None):
         """Depthwise causal conv, width cw.  tail: (B, cw-1, W) decode
         state.  Returns (out, new tail)."""
-        cw = self.conv_w.shape[0]
+        cw = conv_w.shape[0]
         if tail is None:
             pad = u.new_zeros((u.shape[0], cw - 1, u.shape[2]))
         else:
             pad = tail.to(u.dtype)
         ext = torch.cat([pad, u], dim=1)                 # (B, T+cw-1, W)
         t = u.shape[1]
-        out = sum(ext[:, i:i + t] * self.conv_w[i] for i in range(cw))
+        out = sum(ext[:, i:i + t] * conv_w[i] for i in range(cw))
         new_tail = ext[:, -(cw - 1):] if cw > 1 else pad
-        return out + self.conv_b, new_tail
+        return out + conv_b, new_tail
 
-    def _gates(self, u):
-        r = torch.sigmoid(self.w_a(u))
-        i = torch.sigmoid(self.w_ix(u))
-        log_a = -RGLRU_C * F.softplus(self.lam).float() * r.float()
+    @staticmethod
+    def _gates(u_in, u, w_a, w_ix, lam):
+        """The decay and gated input from ``u_in`` (what the gates read:
+        the whole width) and ``u`` (this rank's width)."""
+        r = torch.sigmoid(F.linear(u_in, w_a))
+        i = torch.sigmoid(F.linear(u_in, w_ix))
+        log_a = -RGLRU_C * F.softplus(lam).float() * r.float()
         a = torch.exp(log_a)                              # (…, W) in (0, 1]
         gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) \
             * (i.float() * u.float())
@@ -77,23 +90,49 @@ class RGLRU(nn.Module):
 
     def forward(self, x, state=None):
         """x: (B, T, D).  state: None (training) or dict(h=(B, W),
-        conv=(B, cw-1, W)), updated in place (one step, T == 1)."""
+        conv=(B, cw-1, W)), updated in place (one step, T == 1).
+
+        On a model axis that divides the width each rank runs its block
+        of it: ``w_x`` / ``w_y`` columns, the conv and the scan on its
+        channels, ``w_a`` / ``w_ix`` columns from the whole ``u``
+        (gathered over the axis), ``w_rnn_out`` rows and an ordered sum;
+        the decode state is its block (:func:`layers.state_block`)."""
         if state is not None and x.shape[1] != 1:
             raise ValueError("a recurrent state advances one token a call")
-        u = self.w_x(x)
-        gate = F.gelu(self.w_y(x), approximate="tanh")
-        u, new_tail = self._conv_causal(
-            u, None if state is None else state["conv"])
-        a, b = self._gates(u)                             # (B, T, W) f32
+        split = L.Split(self)
+        w = self.lam.shape[0]
+        if split:
+            xi = L.column_input(x)
+            u = F.linear(xi, split.own("w_x.weight"))
+            gate = F.gelu(F.linear(xi, split.own("w_y.weight")),
+                          approximate="tanh")
+            conv_w, conv_b = split.own("conv_w", 1), split.own("conv_b")
+            w_a, w_ix = split.own("w_a.weight"), split.own("w_ix.weight")
+            lam = split.own("lam")
+        else:
+            u = self.w_x(x)
+            gate = F.gelu(self.w_y(x), approximate="tanh")
+            conv_w, conv_b = self.conv_w, self.conv_b
+            w_a, w_ix, lam = self.w_a.weight, self.w_ix.weight, self.lam
+        tail = store_tail = None
+        if state is not None:
+            tail, store_tail = L.state_block(state["conv"], 2, w,
+                                             bool(split))
+        u, new_tail = self._conv_causal(u, conv_w, conv_b, tail)
+        u_in = sharding.gather_scatter_grad(u, split.ax, 2) if split else u
+        a, b = self._gates(u_in, u, w_a, w_ix, lam)       # (B, T, W) f32
         if state is None:
             h = chunked_scan(a, b)
         else:
-            h = a[:, 0] * state["h"].float() + b[:, 0]
-            state["h"].copy_(h)
-            state["conv"].copy_(new_tail)
+            h_prev, store_h = L.state_block(state["h"], 1, w, bool(split))
+            h = a[:, 0] * h_prev.float() + b[:, 0]
+            store_h(h)
+            store_tail(new_tail)
             h = h[:, None]
         h = L.constrain(h.to(x.dtype), "ffn")
-        return L.constrain(self.w_rnn_out(h * gate), "residual")
+        if split:
+            return L.row_output(h * gate, split.own("w_rnn_out.weight", 1))
+        return L.to_residual(self.w_rnn_out(h * gate))
 
 
 def linear_scan(a, b):

@@ -57,31 +57,58 @@ class RWKV6TimeMix(nn.Module):
             getattr(self, name).fill_(0.5)
         self.ln_g.fill_(1.0)                # per-head group norm
 
+    def model_blocks(self, m: int) -> list:
+        """The parameters computed on as their model-axis blocks: the head
+        split's (``wr`` / ``wg`` and the per-head vectors are stored whole,
+        and sliced)."""
+        if m == 1 or self.heads % m:
+            return []
+        return ["wk.weight", "wv.weight", "wo.weight"]
+
     def forward(self, x, state=None):
         """x: (B, T, D).  state: None (training) or dict(s=(B, H, K, V),
-        shift=(B, D)) for a one-token decode step, updated in place."""
+        shift=(B, D)) for a one-token decode step, updated in place.
+
+        On a model axis that divides the heads each rank runs its heads:
+        ``wr`` / ``wk`` / ``wv`` / ``wg`` columns, the LoRA decay's output,
+        ``w0``, ``u`` and ``ln_g`` sliced to them, the WKV recurrence and
+        its state ``s`` on them, ``wo`` rows and an ordered sum."""
         b, t, d = x.shape
-        h = self.heads
+        split = L.Split(self)
+        h = self.heads // split.ax.size if split else self.heads
         if state is None:
             prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-            s0 = x.new_zeros((b, h, d // h, d // h), dtype=torch.float32)
+            s0 = x.new_zeros((b, h, d // self.heads, d // self.heads),
+                             dtype=torch.float32)
         else:
             if t != 1:
                 raise ValueError("a recurrent state advances one token a "
                                  "call")
             prev = state["shift"][:, None].to(x.dtype)
-            s0 = state["s"].float()
+            s_blk, store_s = L.state_block(state["s"], 1, self.heads,
+                                           bool(split))
+            s0 = s_blk.float()
         xx = prev - x
         xr, xk, xv, xg = (x + xx * getattr(self, m)
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g"))
         xw = x + xx * self.mu_w
 
-        r = _heads(self.wr(xr), h).float()
-        k = _heads(self.wk(xk), h).float()
-        v = _heads(self.wv(xv), h).float()
-        g = F.silu(self.wg(xg))
-        logit = self.w0 + self.lora_b_w(torch.tanh(self.lora_a_w(xw))).float()
+        def cols(name, t):
+            if not split:
+                return getattr(self, name)(t)
+            return F.linear(L.column_input(t), split.own(f"{name}.weight"))
+
+        def own(name):
+            return split.own(name) if split else getattr(self, name)
+
+        r = _heads(cols("wr", xr), h).float()
+        k = _heads(cols("wk", xk), h).float()
+        v = _heads(cols("wv", xv), h).float()
+        g = F.silu(cols("wg", xg))
+        logit = own("w0") + cols("lora_b_w",
+                                 torch.tanh(self.lora_a_w(xw))).float()
         w = _heads(torch.exp(-torch.exp(logit)), h)      # in (0, 1)
+        u = own("u")
 
         if state is None:
             pad = (-t) % CHUNK
@@ -89,20 +116,22 @@ class RWKV6TimeMix(nn.Module):
                 # w = 1 (no decay), k = 0 (no writes), r = 0 (no reads)
                 r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
                 w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-            y = chunked_wkv(r, k, v, w, self.u, s0)[0][:, :t]
+            y = chunked_wkv(r, k, v, w, u, s0)[0][:, :t]
         else:
             r1, k1, v1, w1 = r[:, 0], k[:, 0], v[:, 0], w[:, 0]
             kv = k1[..., :, None] * v1[..., None, :]         # (B, H, K, V)
             y1 = torch.einsum("bhk,bhkv->bhv", r1,
-                              s0 + self.u[None, :, :, None] * kv)
-            state["s"].copy_(w1[..., None] * s0 + kv)
+                              s0 + u[None, :, :, None] * kv)
+            store_s(w1[..., None] * s0 + kv)
             state["shift"].copy_(x[:, -1])
             y = y1[:, None]
 
         # per-head group norm then output gate (back in the residual dtype)
         y = L.rms_norm(y.reshape(b, t, h, -1),
-                       self.ln_g.view(h, -1)).reshape(b, t, d)
-        return L.constrain(self.wo(y.to(x.dtype) * g), "residual")
+                       own("ln_g").view(h, -1)).reshape(b, t, -1)
+        if split:
+            return L.row_output(y.to(x.dtype) * g, split.own("wo.weight", 1))
+        return L.to_residual(self.wo(y.to(x.dtype) * g))
 
 
 def _heads(x, h):

@@ -33,22 +33,41 @@ How a rule becomes placement, by hand on the collectives of
 * **A step** (:class:`ShardedModel`, ``train/trainer.py``) runs the
   rank's rows of the batch (split over the data axes by
   ``input_sharding("tokens")``) one segment at a time: each segment's
-  parameters are gathered whole just before it runs and dropped after,
-  and when its backward ends each gradient is reduced to its block:
-  summed over the data axes in rank order (all-to-all or all-gather,
-  then an ordered float32 sum, so every replica holds the same bits),
-  divided by the data-axis size.  A decode step gathers one layer's
-  cache at a time (:func:`cache_shardings`).
-  The model axis stores the parameters split; the ranks of one model
-  row compute the dense layers whole, and split only the expert
-  products (``models/moe.py``, whose routing is gathered over the data
-  axes so that capacity and drops are the global batch's).
-* :func:`constrain` / :func:`constrain_first_fit` mark the reference's
-  layout sites.  They never change a value: outside :meth:`Rules.activate`
-  they return ``x`` itself, inside it they resolve the spec (first fit
-  included) and record it in :attr:`Rules.layouts`.  The hand placement
-  holds every activation as the rank's rows, whole along the other dims,
-  whatever the spec asks of the model axis.
+  parameters are gathered just before it runs and dropped after, and
+  when its backward ends each gradient is reduced to its block: summed
+  over the data axes in rank order (all-to-all or all-gather, then an
+  ordered float32 sum, so every replica holds the same bits), divided by
+  the data-axis size.  A parameter the layers compute on as its
+  model-axis block (:func:`model_blocks`: ``ShardedModel.split``) is
+  gathered over the data axes only; the rest whole.
+* **The model axis splits the compute** wherever the reference's rule
+  table or first fit splits a dim over ``model`` (the layers' helpers in
+  ``models/layers.py``): attention heads (``wq``/``wk``/``wv`` column
+  blocks, ``wo`` row blocks; after the reference's transient KV-head
+  repeat, :func:`kv_repeat`), else a block of query positions against
+  the whole K/V; the MLP's ``d_ff``; the RG-LRU width; the RWKV heads;
+  the vocabulary of the embedding, the head and the loss
+  (:func:`split_logsumexp`); the experts (``models/moe.py``, whose
+  routing is gathered over the data axes so that capacity and drops are
+  the global batch's).  Where the axis does not divide the dim, that
+  product runs whole on every rank.  A column-split product's input
+  takes the ranks' ordered gradient sum (:func:`sum_grad`); a row-split
+  product's float32 parts are summed in rank order (:func:`sum_parts`,
+  or :func:`sum_scatter_parts` onto a sequence-parallel residual, which
+  ``Rules(sp=True)`` holds split on ``d_model`` between sublayers and
+  gathers before each norm): never a backend's all_reduce, so every rank
+  of a model row holds the same bits and a rerun, remat on or off and a
+  restore stay bit-equal.  These exchanges count as ``"tp"``.
+* **A decode step** gathers one layer's parameters and cache for its
+  rows; a cache block the model axis splits (KV heads, or the slots of a
+  sequence-split cache, :func:`cache_shardings`; RWKV heads; the RG-LRU
+  width) stays the rank's, which attends over it: a sequence split
+  combines each rank's partial softmax in rank order, and the new entry
+  is written by the rank that owns its slot.
+* :func:`constrain` marks the reference's layout sites (``x`` unchanged,
+  the spec recorded in :attr:`Rules.layouts` inside
+  :meth:`Rules.activate`); :func:`first_fit` resolves and records the
+  attention's first fit, which the layer then runs.
 """
 from __future__ import annotations
 
@@ -65,8 +84,9 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("rules",
 
 #: bytes this process received from its peers through the placement
 #: collectives, by kind ("gather" for parameters, "grad_reduce" for
-#: gradients, "tokens" for the MoE's activation exchanges, "norm",
-#: "reshard"); :func:`reset_collective_bytes` clears it.
+#: gradients, "tp" for the model axis's split compute, "tokens" for the
+#: MoE's activation exchanges, "cache", "norm", "reshard");
+#: :func:`reset_collective_bytes` clears it.
 COLLECTIVE_BYTES: dict = {}
 
 
@@ -135,9 +155,9 @@ class Rules:
     def __init__(self, mesh, fsdp: bool = True, sp: bool = False):
         self.mesh = mesh
         self.fsdp = fsdp
-        # sp: the residual stream's d_model over the model axis (the
-        # reference's sequence-parallel-style memory posture; a layout
-        # statement here, see the module docstring)
+        # sp: the residual stream's d_model over the model axis between
+        # sublayers (the reference's sequence-parallel-style memory
+        # posture; the module docstring)
         self.sp = sp
         self.dp = _dp_axes(mesh)
         #: the spec each constrain site resolved to last, by name
@@ -282,21 +302,29 @@ def _spec_fits(mesh, spec, shape) -> bool:
     return True
 
 
-def constrain_first_fit(x, specs: Sequence[tuple]):
+def first_fit(x, specs: Sequence[tuple]):
     """The first spec whose named axes all exist and divide the logical
-    tensor's dims -- the mechanism behind divisibility-aware attention
-    sharding across GQA configs.  ``x`` is this rank's rows of a batch
-    activation, so its logical batch is the data axes' size times its
-    own.  ``x`` itself outside :meth:`Rules.activate`; inside, ``x``
-    unchanged with the chosen spec (None if none fits) recorded in
-    ``rules.layouts["first_fit"]``."""
+    tensor's dims (None if none fits, or outside :meth:`Rules.activate`),
+    recorded in ``rules.layouts["first_fit"]``: the mechanism behind
+    divisibility-aware attention sharding across GQA configs, and the
+    layout the attention then runs.  ``x`` (a tensor or a shape) is this
+    rank's rows of a batch activation, so its logical batch is the data
+    axes' size times its own."""
     rules: Rules | None = _ACTIVE.get()
     if rules is None:
-        return x
+        return None
     n_dp = math.prod(rules.mesh.shape[a] for a in rules.dp)
-    shape = (x.shape[0] * n_dp,) + tuple(x.shape[1:])
-    rules.layouts["first_fit"] = next(
-        (P(*s) for s in specs if _spec_fits(rules.mesh, s, shape)), None)
+    shape = tuple(getattr(x, "shape", x))
+    shape = (shape[0] * n_dp,) + shape[1:]
+    spec = next((P(*s) for s in specs if _spec_fits(rules.mesh, s, shape)),
+                None)
+    rules.layouts["first_fit"] = spec
+    return spec
+
+
+def constrain_first_fit(x, specs: Sequence[tuple]):
+    """:func:`first_fit` recorded for ``x``; returns ``x`` itself."""
+    first_fit(x, specs)
     return x
 
 
@@ -344,15 +372,36 @@ def _all_gather_dim(x, ax, dim: int, kind: str):
     return torch.movedim(out, 0, dim).contiguous()
 
 
+def stack_over(x, ax, kind: str = "tp"):
+    """Every rank's ``x`` over the group ``ax``, stacked in rank order on
+    a new leading dim."""
+    return _all_gather_dim(x.unsqueeze(0), ax, 0, kind)
+
+
 def sum_over(x, ax, kind: str):
     """Sum of every rank's ``x`` over the group ``ax`` in float32, added
     in rank order: the same bits on every rank (a backend's all_reduce
     order is its own)."""
-    parts = _all_gather_dim(x.unsqueeze(0), ax, 0, kind)
+    parts = stack_over(x, ax, kind)
     out = parts[0].float()
     for j in range(1, ax.size):
         out = out + parts[j].float()
     return out
+
+
+def tp_sum(x, ax):
+    """:func:`sum_over` of the model axis's split compute (kind ``"tp"``):
+    over more than two ranks, where a dim splits over them, each rank
+    sums its block (:func:`sum_scatter`) and the blocks are gathered.
+    The same additions in the same order, so the same bits, with
+    2 (n - 1) / n of ``x`` received instead of n - 1 and no n float32
+    copies held at once (on a model axis of 16, 1/8 of the bytes)."""
+    n = ax.size
+    dim = next((i for i, k in enumerate(x.shape) if k % n == 0), None) \
+        if n > 2 else None
+    if dim is None:
+        return sum_over(x, ax, "tp")
+    return _all_gather_dim(sum_scatter(x, ax, dim, "tp"), ax, dim, "tp")
 
 
 def sum_scatter(x, ax, dim: int, kind: str):
@@ -503,7 +552,7 @@ def place_batch(rules: Rules, x: torch.Tensor) -> torch.Tensor:
     return rules.input_sharding(name, x.shape).local(x, skip=("model",))
 
 
-# ------------------------------------------- the MoE's exchanges (autograd)
+# ---------------------------------- model-axis and MoE exchanges (autograd)
 class _GatherRows(torch.autograd.Function):
     """All-gather along dim 0 over the data axes; each rank's loss adds
     up, so the gradient of a rank's rows is the ordered sum of every
@@ -520,33 +569,115 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _SumGrad(torch.autograd.Function):
-    """Identity; the ranks of the model axis each compute part of what
-    depends on ``x`` (their experts), so its gradient is their ordered
-    sum."""
+    """Identity forward, ordered sum backward: the ranks of ``ax`` each
+    compute a distinct part of what depends on ``x`` (their experts, their
+    columns of a product), so its gradient is the sum of theirs."""
 
     @staticmethod
-    def forward(ctx, x, ax):
-        ctx.ax = ax
+    def forward(ctx, x, ax, kind):
+        ctx.ax, ctx.kind = ax, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return sum_over(g, ctx.ax, "tokens").to(g.dtype), None
+        out = tp_sum(g, ctx.ax) if ctx.kind == "tp" \
+            else sum_over(g, ctx.ax, ctx.kind)
+        return out.to(g.dtype), None, None
 
 
-class _GatherBlocks(torch.autograd.Function):
-    """All-gather along dim 0 over the model axis, whose ranks compute
-    the same loss from the result: a block's gradient is its slice."""
+class _SumParts(torch.autograd.Function):
+    """Ordered float32 sum forward (:func:`tp_sum`), identity backward:
+    the partial outputs of a row-split product, each rank's part of a
+    split sum.  Every rank gets the same bits."""
 
     @staticmethod
     def forward(ctx, x, ax):
-        ctx.ax, ctx.n = ax, x.shape[0]
-        return _all_gather_dim(x, ax, 0, "tokens")
+        ctx.dtype = x.dtype
+        return tp_sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _SumScatter(torch.autograd.Function):
+    """This rank's block along ``dim`` of the ordered float32 sum
+    (:func:`sum_scatter`) forward, all-gather backward: a row-split
+    product's parts onto a sequence-parallel residual."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.dtype = ax, dim, x.dtype
+        return sum_scatter(x, ax, dim, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.ax, ctx.dim, "tp").to(ctx.dtype), \
+            None, None
+
+
+class _GatherScatterGrad(torch.autograd.Function):
+    """All-gather along ``dim`` forward, sum-scatter backward: every rank
+    feeds the whole tensor to its own part of the next product, so the
+    gradient of a rank's block is the ordered sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _all_gather_dim(x, ax, dim, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_scatter(g, ctx.ax, ctx.dim, "tp").to(g.dtype), None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """All-gather along ``dim`` over ``ax``, whose ranks compute the same
+    loss from the result: a block's gradient is its slice."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, kind):
+        ctx.ax, ctx.n, ctx.dim = ax, x.shape[dim], dim
+        return _all_gather_dim(x, ax, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
         i = ctx.ax.index
-        return g[i * ctx.n:(i + 1) * ctx.n].contiguous(), None
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, \
+            None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` forward (of a tensor every rank of
+    ``ax`` holds whole), all-gather backward: each rank's block gradient
+    is whole for its block, the others' come from their ranks."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        n = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.ax, ctx.dim, "tp"), None, None
+
+
+def max_over(x, ax):
+    """The elementwise max of every rank's ``x`` over ``ax`` (no
+    gradient: the split log-sum-exp's shift)."""
+    with torch.no_grad():
+        return stack_over(x.detach(), ax).amax(dim=0)
+
+
+def split_logsumexp(x, ax):
+    """log-sum-exp over the last dim of a tensor whose last dim is split
+    over ``ax`` (this rank's block ``x``, float32): the max over the
+    ranks, then the ordered sum of every rank's exponentials.  The same
+    bits on every rank."""
+    m = max_over(x.amax(dim=-1), ax)
+    part = torch.exp(x - m[..., None]).sum(dim=-1)
+    return m + torch.log(sum_parts(part, ax))
 
 
 def moe_layout(cfg):
@@ -571,12 +702,67 @@ def gather_rows(x, ax):
     return x if ax is None else _GatherRows.apply(x, ax)
 
 
-def sum_grad(x, ax):
-    return x if ax is None else _SumGrad.apply(x, ax)
+def sum_grad(x, ax, kind: str = "tp"):
+    return x if ax is None else _SumGrad.apply(x, ax, kind)
 
 
-def gather_blocks(x, ax):
-    return x if ax is None else _GatherBlocks.apply(x, ax)
+def sum_parts(x, ax):
+    return x if ax is None else _SumParts.apply(x, ax)
+
+
+def sum_scatter_parts(x, ax, dim: int):
+    return x if ax is None else _SumScatter.apply(x, ax, dim)
+
+
+def gather_scatter_grad(x, ax, dim: int):
+    return x if ax is None else _GatherScatterGrad.apply(x, ax, dim)
+
+
+def gather_blocks(x, ax, dim: int = 0, kind: str = "tp"):
+    return x if ax is None else _GatherBlocks.apply(x, ax, dim, kind)
+
+
+def take_block(x, ax, dim: int):
+    return x if ax is None else _TakeBlock.apply(x, ax, dim)
+
+
+# ------------------------------------------------ the model axis's plan
+def model_group():
+    """The model-axis group the active rules split a layer's work over:
+    None outside :meth:`Rules.activate` or on a model axis of 1."""
+    rules = _ACTIVE.get()
+    if rules is None or rules.mesh.shape.get("model", 1) == 1:
+        return None
+    return rules.mesh.axis("model")
+
+
+def sp_group(d_model: int):
+    """The model-axis group when the active rules hold the residual
+    stream split on ``d_model`` (``Rules(sp=True)``, an axis that divides
+    it), else None."""
+    ax = model_group()
+    if ax is None or not _ACTIVE.get().sp or d_model % ax.size:
+        return None
+    return ax
+
+
+def kv_repeat(cfg, m: int) -> int:
+    """The reference's transient KV-head repeat of an uncached attention
+    pass on a model axis of ``m``: where the KV heads do not divide the
+    axis and the query heads do, the smallest ``r`` for which ``kv * r``
+    divides both ``m`` and the query heads (1: no repeat)."""
+    kv, h = cfg.n_kv_heads, cfg.n_heads
+    if m > 1 and kv % m and h % m == 0:
+        for r in range(2, h // kv + 1):
+            if (kv * r) % m == 0 and h % (kv * r) == 0:
+                return r
+    return 1
+
+
+def heads_split(cfg, m: int) -> bool:
+    """Whether an uncached attention pass splits its heads over a model
+    axis of ``m``: the first fit's KV-head spec, after the repeat."""
+    return m > 1 and (cfg.n_kv_heads * kv_repeat(cfg, m)) % m == 0
 
 
 # ------------------------------------------------------ a sharded model
@@ -640,6 +826,21 @@ def block_shapes(cfg, rules: Rules) -> dict:
     shardings = rules.model_shardings(cfg)
     return {name: (shardings[name].block_shape(p.shape), p.dtype)
             for name, p in Model(cfg, device="meta").named_parameters()}
+
+
+def model_blocks(model, rules: Rules) -> list:
+    """The names of the parameters of ``model`` (a port ``Model``) that its
+    layers compute on as their model-axis blocks under ``rules``: what
+    each module's ``model_blocks(m)`` names."""
+    m = rules.mesh.shape.get("model", 1)
+    if m == 1:
+        return []
+    out = []
+    for mname, mod in model.named_modules():
+        fn = getattr(mod, "model_blocks", None)
+        if fn is not None:
+            out += [f"{mname}.{n}" if mname else n for n in fn(m)]
+    return out
 
 
 class _GatherParams(torch.autograd.Function):
@@ -725,12 +926,15 @@ class ShardedModel:
         self.cfg = cfg
         self.rules = rules
         self.shardings = rules.model_shardings(cfg)
-        self.split = {}
-        if rules.expert_axis(cfg) and rules.mesh.shape["model"] > 1:
-            self.split = {n: ("model",) for n, sh in self.shardings.items()
-                          if sh.rule[0].split("/")[-1].startswith("experts_")}
+        meta = Model(cfg, device="meta")
+        self.split = {n: ("model",) for n in model_blocks(meta, rules)}
+        for n in self.split:
+            if "model" not in {a for e in self.shardings[n].spec
+                               for a in _entry_axes(e)}:
+                raise ValueError(f"{n} is computed on its model block but "
+                                 f"stored as {self.shardings[n].spec}")
         self.shapes = {n: tuple(p.shape) for n, p in
-                       Model(cfg, device="meta").named_parameters()}
+                       meta.named_parameters()}
         #: gradients reduced to their blocks, waiting for take_grads
         self.pending: dict = {}
         #: ``fn(name, float32 block gradient)`` applied as each one is
@@ -805,21 +1009,14 @@ class ShardedModel:
     @torch.no_grad()
     def gather_(self) -> None:
         """Give ``work`` real storage and fill it with the whole
-        parameters (the experts only with this rank's model block: the
-        other blocks are zero).  Not used by a step: for inspecting the
-        whole model and for comparisons with it."""
-        dp = _dp_axes(self.rules.mesh)
+        parameters.  Not used by a step: for inspecting the whole model
+        and for comparisons with it, outside the rules or on a model axis
+        of 1 (under a model split a layer takes the parameters its plan
+        names as blocks, :meth:`gathered`'s, ``layers.Split``)."""
         if any(p.is_meta for p in self.work.parameters()):
             self.work.to_empty(device=self.device)
         for name, p in self.work.named_parameters():
-            sh = self.shardings[name]
-            skip = self.split.get(name, ())
-            full = sh.gather(self.params[name], skip=skip)
-            if skip:
-                p.zero_()
-                p[sh.block(p.shape, skip=dp)] = full
-            else:
-                p.copy_(full)
+            p.copy_(self.shardings[name].gather(self.params[name]))
 
     def mean_over_dp(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a per-rank scalar over the data axes (an ordered
@@ -893,15 +1090,28 @@ class ShardedModel:
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, whole: bool = True):
         """The global batch's logits (every rank gets them whole; with
-        ``whole`` False, this rank's rows of them): each rank runs its
-        rows under the rules, one segment's parameters gathered at a
-        time, and the rows are gathered over the data axes."""
+        ``whole`` False, this rank's block of them: its rows, and its
+        vocabulary block where the model axis splits the vocabulary): each
+        rank runs its rows under the rules, one segment's parameters
+        gathered at a time, and the logits are gathered over the model
+        axis, then the rows over the data axes."""
         with self.rules.activate():
             rows, ax = self._rows(tokens)
             logits = self.work(rows, gather=self.gathered)[0]
-        if ax is None or not whole:
+        if not whole:
+            return logits
+        logits = self._whole_vocab(logits)
+        if ax is None:
             return logits
         return _all_gather_dim(logits, ax, 0, "tokens")
+
+    def _whole_vocab(self, logits):
+        """Logits whole on the vocabulary: a vocabulary block gathered over
+        the model axis."""
+        if not {"embed.weight", "head.weight"} & set(self.split):
+            return logits
+        return _all_gather_dim(logits, self.rules.mesh.axis("model"),
+                               logits.dim() - 1, "tp")
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """This rank's blocks of a zero decode cache (``api.init_cache``'s
@@ -919,36 +1129,52 @@ class ShardedModel:
             return Sharded(local, sh, node.shape, node.dtype)
         return visit(full, cache_shardings(self.rules, full))
 
+    #: decode state a layer computes on as its model-axis block where the
+    #: cache splits it (KV heads or slots, RWKV heads, RG-LRU width); the
+    #: token shifts are read whole
+    MODEL_LOCAL = ("k", "v", "s", "h", "conv")
+
     @contextlib.contextmanager
     def _layer_cache(self, leaves: dict, period, ax):
-        """One layer's cache, whole for this rank's rows, from the blocks
-        of ``leaves`` ({name: :class:`Sharded`}, stacked over the periods
+        """One layer's cache for this rank's rows from the blocks of
+        ``leaves`` ({name: :class:`Sharded`}, stacked over the periods
         unless ``period`` is None); on exit the layer's writes go back into
-        this rank's blocks.  A leaf split over the data axes on its batch
-        dim is gathered over the other axes only; any other leaf (the
-        tail's, whose batch dim the reference's spec leaves whole) whole,
-        its updated rows gathered back over the data axes."""
-        dp = _dp_axes(self.rules.mesh)
+        this rank's blocks.  A leaf the model axis splits (of
+        :attr:`MODEL_LOCAL`) stays this rank's block there (a
+        sequence-split ``k`` / ``v`` comes with ``"slot0"`` and
+        ``"slots"``: its first slot and the whole count); the rest is
+        gathered over the model axis.  A leaf split over the data axes on
+        its batch dim is gathered over the other axes only; any other leaf
+        (the tail's, whose batch dim the reference's spec leaves whole)
+        whole, its updated rows gathered back over the data axes."""
+        mesh = self.rules.mesh
+        dp = _dp_axes(mesh)
         out, back = {}, []
         for k, leaf in leaves.items():
             spec = leaf.sharding.spec
             if period is not None:
                 spec = spec[1:]
-            sh = NamedSharding(self.rules.mesh, spec)
+            sh = NamedSharding(mesh, spec)
             block = leaf.local if period is None else leaf.local[period]
             spec = spec + (None,) * (block.dim() - len(spec))
             on_batch = set(_entry_axes(spec[0])) == set(dp) and not any(
                 a in dp for e in spec[1:] for a in _entry_axes(e))
+            keep = ("model",) if k in self.MODEL_LOCAL else ()
+            if keep and k in ("k", "v") and spec[1] == "model":
+                n = block.shape[1]
+                out["slot0"] = mesh.coords["model"] * n
+                out["slots"] = n * mesh.shape["model"]
             if ax is None or on_batch:
-                full = sh.gather(block, skip=dp if on_batch else ())
+                skip = (dp if on_batch else ()) + keep
+                full = sh.gather(block, skip=skip)
                 out[k] = full
-                back.append((block, sh, full, dp if on_batch else (), None))
+                back.append((block, sh, full, skip, None))
             else:
-                full = sh.gather(block)
+                full = sh.gather(block, skip=keep)
                 n = full.shape[0] // ax.size
                 rows = full[ax.index * n:(ax.index + 1) * n].clone()
                 out[k] = rows
-                back.append((block, sh, rows, (), ax))
+                back.append((block, sh, rows, keep, ax))
         yield out
         for block, sh, t, skip, rows_ax in back:
             if rows_ax is not None:
@@ -959,9 +1185,10 @@ class ShardedModel:
     def decode_step(self, tokens: torch.Tensor, cache, cache_len: int):
         """One-token decode of the global batch against a cache of blocks
         (:meth:`init_cache`): every layer gathers its parameters and its
-        cache for this rank's rows, runs, and writes the new state back
-        into the blocks.  Returns the global logits (every rank gets
-        them whole); the cache is updated in place."""
+        cache for this rank's rows (a cache block the model axis splits
+        stays this rank's: :meth:`_layer_cache`), runs, and writes the new
+        state back into the blocks.  Returns the global logits (every rank
+        gets them whole); the cache is updated in place."""
         from .models import layers as L
         cfg, work = self.cfg, self.work
         tied = work.head is None and work.embed is not None
@@ -971,11 +1198,10 @@ class ShardedModel:
             rows, ax = self._rows(tokens)
             with self.gathered([work.embed] if tied else []):
                 if cfg.embedding_inputs:
-                    x = rows.to(cfg.torch_dtype)
+                    x = L.to_residual(rows.to(cfg.torch_dtype))
                 else:
                     with self.gathered([] if tied else [work.embed]):
-                        x = work.embed(rows)
-                x = L.constrain(x, "residual")
+                        x = work._lookup(rows)
                 positions = torch.arange(cache_len, cache_len + x.shape[1],
                                          dtype=torch.int32, device=x.device)
                 for i, blk in enumerate(work.layers):
@@ -987,10 +1213,9 @@ class ShardedModel:
                             self._layer_cache(leaves, period, ax) as c:
                         x, _ = blk(x, positions, c, cache_len)
                 with self.gathered([work.final_norm, work.head]):
-                    x = work.final_norm(x)
-                    logits = work.head(x) if work.head is not None \
-                        else x @ work.embed.weight.T
-                logits = L.constrain(logits, "logits")
+                    x = work.final_norm(L.whole_residual(x, cfg.d_model))
+                    logits = work._logits(x)
+                logits = self._whole_vocab(L.constrain(logits, "logits"))
         if ax is not None:
             logits = _all_gather_dim(logits, ax, 0, "tokens")
         return logits

@@ -70,26 +70,36 @@ def _mesh(shape):
 
 
 # ------------------------------------------------- the whole-gather step
+def _block_model(cfg, sm):
+    """A real model whose parameters are the shapes the sharded step
+    computes on: the model-axis block of each one ``sm.split`` names (its
+    layers compute on that block), the whole tensor of the rest."""
+    dp = sharding._dp_axes(sm.rules.mesh)
+    work = _model(cfg)
+    for name in sm.split:
+        mname, attr = name.rsplit(".", 1) if "." in name else ("", name)
+        mod = work.get_submodule(mname)
+        old = mod._parameters[attr]
+        sl = sm.shardings[name].block(old.shape, skip=dp)
+        mod._parameters[attr] = torch.nn.Parameter(old.detach()[sl].clone())
+    return work
+
+
 def _whole_gather_step(cfg, opt, sm, work, accum: int):
-    """The sharded step with every parameter gathered whole up front:
-    ``work`` (a real model) takes the gathered tensors (the experts split
-    over the model axis: the rank's block, the rest zero), runs the
-    rank's rows, and each ``.grad`` is reduced by
+    """The sharded step with every parameter gathered up front over the
+    data axes into the block its layer computes on: ``work``
+    (:func:`_block_model`) takes the gathered tensors (the model-axis
+    block of a parameter in ``sm.split``, the whole tensor of the rest),
+    runs the rank's rows, and each ``.grad`` is reduced by
     ``NamedSharding.reduce``; ``sm`` lends its blocks, shardings and
     global norm."""
-    dp = sharding._dp_axes(sm.rules.mesh)
 
     def step(state, batch):
         with torch.no_grad():
             for name, p in work.named_parameters():
                 sh = sm.shardings[name]
-                skip = sm.split.get(name, ())
-                full = sh.gather(sm.params[name], skip=skip)
-                if skip:
-                    p.zero_()
-                    p[sh.block(p.shape, skip=dp)] = full
-                else:
-                    p.copy_(full)
+                p.copy_(sh.gather(sm.params[name],
+                                  skip=sm.split.get(name, ())))
 
         def micro(tok, lab):
             place = lambda x: sharding.place_batch(sm.rules, x)  # noqa
@@ -99,7 +109,8 @@ def _whole_gather_step(cfg, opt, sm, work, accum: int):
             grads = {}
             for name, p in work.named_parameters():
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                grads[name] = sm.shardings[name].reduce(g)
+                grads[name] = sm.shardings[name].reduce(
+                    g, skip=sm.split.get(name, ()))
                 p.grad = None
             return sm.mean_over_dp(loss), grads
 
@@ -138,7 +149,7 @@ def _step_case(arch, accum, shape):
     new_state = opt.init(new)
     old = sharding.ShardedModel(_model(cfg), rules)
     old_state = opt.init(old)
-    work = _model(cfg)
+    work = _block_model(cfg, old)
     step = make_train_step(cfg, opt, accum=accum, remat=True)
     ref_step = _whole_gather_step(cfg, opt, old, work, accum)
     same, losses = True, []
@@ -171,7 +182,7 @@ def _peak_case():
         step(sm, state, batch)
     old = sharding.ShardedModel(_model(cfg), rules)
     old_state = opt.init(old)
-    work = _model(cfg)
+    work = _block_model(cfg, old)
     ref = _whole_gather_step(cfg, opt, old, work, 1)
     with LiveBytes() as whole:
         ref(old_state, batch)

@@ -6,8 +6,8 @@
 
 Ranks are spawned once per rank count (2 and 4), side by side from
 threads, while the JAX references compile in this process.  Reduced
-yi_6b, olmoe_1b_7b and granite_34b (MQA: its one KV head drops the model
-axis from the attention's first fit) take ``STEPS`` steps on meshes
+yi_6b, olmoe_1b_7b and granite_34b (MQA: its one KV head is repeated to
+the model axis, as the reference repeats it) take ``STEPS`` steps on meshes
 (2, 1), (1, 2) and (2, 2) from the JAX package's initial weights
 (carried by ``models/convert.py``), against
 
@@ -26,7 +26,19 @@ exceeds 1e-5 of it on ``bk``.  The same noise on weights of their own
 scale is why ``OPT``'s lr is small: the gradients agree to rounding, but
 two Adam steps at lr 1e-3 (olmoe's experts, the drop case) or 1e-4
 (granite's ``w_out`` against the JAX package) amplify it past 1e-5 of
-a leaf's max |p|.  The MoE drop
+a leaf's max |p|.  Adam's step is m / (sqrt(v) + eps): for an element
+whose gradient is near eps it moves by about lr g / eps, so rounding of
+g is multiplied by lr / eps.  The parameter comparisons therefore leave
+out the elements whose reference gradient lies within ``EPS_ZONE`` x eps
+of zero, and not zero, at some step (the reference step's own gradients:
+``Recording``; the tests print the count), and every gradient is
+compared on its own, before the optimizer, within the bounds of
+tests/test_torch_train_grads.py: each leaf within ``GRAD_RTOL`` of its
+max |g| (floor ``ZERO_FLOOR`` of the model's largest).  The rule bites
+on the model axis's split of the attention's output product (its
+float32 parts summed over the ranks round otherwise than one product):
+one element of olmoe's ``experts_out`` whose gradient is -1.2e-8 moves
+1.4e-5 of the leaf's scale off the one-rank step on (1, 2).  The MoE drop
 case (olmoe at capacity factor ``DROP_CF``) routes a batch on which each
 rank routing its own rows would drop other tokens than the global routing
 does; the mesh's drops equal one rank's.  Bit for bit on (2, 2): remat on
@@ -61,6 +73,11 @@ RTOL = 1e-6
 PARAM_TOL = 1e-5
 PARAM_FLOOR = 1e-2
 OPT = dict(lr=3e-5, warmup=1)
+EPS_ZONE = 10.0
+#: tests/test_torch_train_grads.py's gradient bounds (that module imports
+#: JAX at its top; this one is collected on the card, without JAX)
+GRAD_RTOL = 1e-4
+ZERO_FLOOR = 1e-3
 DROP_CF = 1.0
 BATCH = (4, 16)
 
@@ -85,13 +102,26 @@ def _torch_batch(b, device="cpu"):
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class Recording(AdamW):
+    """AdamW that keeps a float32 copy of the gradients each update is
+    handed (clipped, as the step hands them over): ``seen``, one dict a
+    step."""
+    seen: list = dataclasses.field(default_factory=list, compare=False)
+
+    def update(self, grads, state, params):
+        self.seen.append({k: g.detach().float().clone()
+                          for k, g in grads.items()})
+        return super().update(grads, state, params)
+
+
 # ------------------------------------------------------------- the ranks
 def _one_rank(cfg, params, batches, *, accum=1, remat=True,
               device="cpu"):
     """The port's unsharded step from ``params``: metrics, final
     parameters and each MoE layer's drops after the first step."""
     model = convert.from_reference(cfg, params, device=device)
-    opt = AdamW(**OPT)
+    opt = Recording(**OPT)
     state = opt.init(model)
     step = make_train_step(cfg, opt, accum=accum, remat=remat)
     metrics, drops = [], None
@@ -102,7 +132,9 @@ def _one_rank(cfg, params, batches, *, accum=1, remat=True,
             drops = [int(blk.ffn.dropped) for blk in model.layers]
     return dict(metrics=metrics, drops=drops,
                 params={k: v.detach().cpu().clone()
-                        for k, v in model.named_parameters()})
+                        for k, v in model.named_parameters()},
+                grads=[{k: g.cpu() for k, g in s.items()}
+                       for s in opt.seen])
 
 
 def _sharded(cfg, params, shape, device="cpu", ranks=None):
@@ -120,7 +152,7 @@ def _mesh_run(cfg, params, shape, batches, *, accum=1, remat=True,
     """The sharded step on ``shape``: metrics, drops after the first step,
     the rules' layouts, the model and optimizer state."""
     sm = _sharded(cfg, params, shape, device)
-    opt = AdamW(**OPT)
+    opt = Recording(**OPT)
     state = opt.init(sm)
     step = make_train_step(cfg, opt, accum=accum, remat=remat)
     metrics, drops = [], None
@@ -134,11 +166,19 @@ def _mesh_run(cfg, params, shape, batches, *, accum=1, remat=True,
                 model=sm, opt=opt, state=state)
 
 
-def _full(sm, keep: bool = True) -> dict | None:
-    """The logical parameters (a collective: every rank calls it), kept
-    where ``keep``."""
-    full = {n: sm.shardings[n].gather(t).cpu() for n, t in sm.params.items()}
+def _full(sm, keep: bool = True, blocks=None) -> dict | None:
+    """The logical parameters (or of ``blocks``, a dict of this rank's
+    blocks by parameter: its gradients), a collective: every rank calls
+    it; kept where ``keep``."""
+    blocks = sm.params if blocks is None else blocks
+    full = {n: sm.shardings[n].gather(t).cpu() for n, t in blocks.items()}
     return full if keep else None
+
+
+def _full_grads(r, keep: bool = True) -> list | None:
+    """:func:`_full` of every step's gradients of a :func:`_mesh_run`."""
+    grads = [_full(r["model"], keep, s) for s in r["opt"].seen]
+    return grads if keep else None
 
 
 def _per_rank_routing_drops(cfg, params, batch, n_data):
@@ -173,7 +213,8 @@ def _rank(world, params, drop_params, batches, store):
         r = _mesh_run(cfg, params[arch], shape, batches[arch][:STEPS])
         out["cases"][(arch, shape)] = dict(
             metrics=r["metrics"], layouts=r["layouts"],
-            params=_full(r["model"], rank == 0))
+            params=_full(r["model"], rank == 0),
+            grads=_full_grads(r, rank == 0))
     drop_cfg = _cfg("olmoe_1b_7b", DROP_CF)
     drop_batches = batches["olmoe_1b_7b"][:STEPS]
     for shape in (SHAPES2 if world == 2 else SHAPES4):
@@ -181,6 +222,7 @@ def _rank(world, params, drop_params, batches, store):
         out["cases"][("drops", shape)] = dict(
             metrics=r["metrics"], drops=r["drops"],
             params=_full(r["model"], rank == 0),
+            grads=_full_grads(r, rank == 0),
             per_rank=_per_rank_routing_drops(
                 drop_cfg, drop_params, drop_batches[0], shape[0])
             if rank == 0 else None)
@@ -359,24 +401,42 @@ def _jax_init(arch):
         lambda k: japi.init_params(jcfg, k), key)(key))
 
 
-def _jax_steps(arch, params, batches, accum=1):
+def _jax_grads_fn(jcfg, params, batch):
+    """The reference's clipped gradients of one unsharded step (what its
+    optimizer is handed), jitted: ``fn(params, batch)``."""
+    import jax
+    from repro.models import api as japi
+    from repro.train import optimizer as jopt
+
+    def grads(p, b):
+        g = jax.grad(lambda q: japi.loss_fn(jcfg, q, b["tokens"],
+                                            b["labels"], remat=False)[0])(p)
+        return jopt.clip_by_global_norm(g, 1.0)[0]
+    return _jit(grads, params, batch)
+
+
+def _jax_steps(arch, params, batches, accum=1, jcfg=None):
     """The reference's unsharded jitted step from ``params`` over the
-    batches: (metrics per step, final parameters as numpy)."""
+    batches: (metrics per step, final parameters as numpy, and with
+    ``accum`` 1 each step's clipped gradients as numpy trees)."""
     import jax
     from repro.configs import get_reduced as jax_reduced
     from repro.train import optimizer as jopt
     from repro.train import trainer as jtrainer
-    jcfg = jax_reduced(arch)
+    jcfg = jcfg or jax_reduced(arch)
     jo = jopt.AdamW(**OPT)
     step = jtrainer.make_train_step(jcfg, jo, accum=accum, donate=False,
                                     jit=False)
     state = jo.init(params)
     fn = _jit(step, params, state, batches[0])
-    metrics = []
+    gfn = _jax_grads_fn(jcfg, params, batches[0]) if accum == 1 else None
+    metrics, grads = [], []
     for b in batches:
+        if gfn is not None:
+            grads.append(jax.tree.map(np.asarray, gfn(params, b)))
         params, state, m = fn(params, state, b)
         metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, jax.tree.map(np.asarray, params)
+    return metrics, jax.tree.map(np.asarray, params), grads or None
 
 
 JAX_COLUMNS = '''
@@ -424,34 +484,102 @@ def _rel(a, b):
     return abs(a - b) / abs(b)
 
 
-def _leaf_errs(got: dict, want: dict) -> dict:
+def _np(v):
+    return np.asarray(v.detach() if hasattr(v, "detach") else v, np.float32)
+
+
+def _settled(grads, k):
+    """Where the reference's gradient of leaf ``k`` is zero or at least
+    ``EPS_ZONE`` x Adam's eps from zero at every step of ``grads`` (a list
+    of dicts by leaf): the elements whose update rounding does not
+    magnify (module docstring; a zero gradient moves neither side)."""
+    eps = EPS_ZONE * AdamW.eps
+    return np.all([(a == 0) | (a >= eps)
+                   for a in (np.abs(_np(g[k])) for g in grads)], axis=0)
+
+
+def _leaf_errs(got: dict, want: dict, grads=None) -> dict:
     """{leaf: max |got - want| over its scale} (module docstring); the
-    leaves as numpy arrays or tensors, by any key."""
-    want = {k: np.asarray(v, np.float32) for k, v in want.items()}
+    leaves as numpy arrays or tensors, by any key.  With ``grads`` (the
+    reference's gradients, one dict a step, by the same keys) only the
+    elements :func:`_settled` keeps count."""
+    want = {k: _np(v) for k, v in want.items()}
     floor = PARAM_FLOOR * max(float(np.abs(w).max()) for w in want.values())
-    return {k: float(np.abs(np.asarray(got[k], np.float32) - w).max()
-                     / max(float(np.abs(w).max()), floor))
-            for k, w in want.items()}
+    out = {}
+    for k, w in want.items():
+        d = np.abs(_np(got[k]) - w)
+        if grads is not None:
+            d = np.where(_settled(grads, k), d, 0.0)
+        out[k] = float(d.max() / max(float(np.abs(w).max()), floor))
+    return out
 
 
-def _param_err(cfg, got: dict, want_tree) -> float:
-    """The worst leaf of :func:`_leaf_errs` against a reference tree."""
+def _left_out(grads) -> dict:
+    """{leaf: elements :func:`_settled` leaves out}, where any."""
+    out = {k: int((~_settled(grads, k)).sum()) for k in grads[0]}
+    return {k: n for k, n in out.items() if n}
+
+
+def _flat(cfg, got: dict, want_tree):
+    """({leaf: got's}, {leaf: want's}) by the reference tree's paths."""
     import jax
     got_tree = convert.to_reference(cfg, got, want_tree)
-    flat = {}
+    g_out, w_out = {}, {}
     for path, w in jax.tree_util.tree_leaves_with_path(want_tree):
         g = got_tree
         for k in path:
             g = g[k.key]
-        flat[jax.tree_util.keystr(path)] = (g, w)
-    return max(_leaf_errs({k: g for k, (g, _) in flat.items()},
-                          {k: w for k, (_, w) in flat.items()}).values())
+        key = jax.tree_util.keystr(path)
+        g_out[key], w_out[key] = g, w
+    return g_out, w_out
 
 
-def _params_close(got: dict, want: dict, what):
-    errs = _leaf_errs(got, want)
+def _flat_ref(tree) -> dict:
+    import jax
+    return {jax.tree_util.keystr(p): w
+            for p, w in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _param_err(cfg, got: dict, want_tree, grads=None) -> float:
+    """The worst leaf of :func:`_leaf_errs` against a reference tree
+    (``grads``: the reference's gradient trees, one a step)."""
+    g, w = _flat(cfg, got, want_tree)
+    if grads is not None:
+        grads = [_flat_ref(t) for t in grads]
+        print("left out of the parameter comparison:", _left_out(grads))
+    return max(_leaf_errs(g, w, grads).values())
+
+
+def _params_close(got: dict, want: dict, what, grads=None):
+    if grads is not None:
+        print(what, "left out of the parameter comparison:",
+              _left_out(grads))
+    errs = _leaf_errs(got, want, grads)
     worst = max(errs, key=errs.get)
     assert errs[worst] <= PARAM_TOL, (what, worst, errs[worst])
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """{leaf: max |got - want| over its scale}: the leaf's max |want|, at
+    least ``ZERO_FLOOR`` of the model's largest (the bounds of
+    tests/test_torch_train_grads.py)."""
+    want = {k: _np(v) for k, v in want.items()}
+    floor = ZERO_FLOOR * max(float(np.abs(w).max()) for w in want.values())
+    return {k: float(np.abs(_np(got[k]) - w).max()
+                     / max(float(np.abs(w).max()), floor))
+            for k, w in want.items()}
+
+
+def _grads_close(got: list, want: list, what, cfg=None):
+    """Every step's gradients within ``GRAD_RTOL`` of the reference's:
+    dicts by parameter, or (with ``cfg``) the reference's trees."""
+    assert got and len(got) == len(want), (what, len(got), len(want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if cfg is not None:
+            g, w = _flat(cfg, g, w)
+        errs = _grad_errs(g, w)
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= GRAD_RTOL, (what, i, worst, errs[worst])
 
 
 def _metrics_close(got, want, what):
@@ -482,7 +610,8 @@ def test_mesh_step_matches_reference(runs, arch, shape):
 @pytest.mark.parametrize("arch,shape", ALL_CASES)
 def test_mesh_params_match_reference(runs, arch, shape):
     _, case = _case(runs, arch, shape)
-    err = _param_err(_cfg(arch), case["params"], runs["ref"][arch][1])
+    ref = runs["ref"][arch]
+    err = _param_err(_cfg(arch), case["params"], ref[1], ref[2])
     assert err <= PARAM_TOL, err
 
 
@@ -491,19 +620,41 @@ def test_mesh_step_matches_one_rank(runs, arch, shape):
     ranks, case = _case(runs, arch, shape)
     one = ranks[0]["one"][arch]
     _metrics_close(case["metrics"], one["metrics"], (arch, shape))
-    _params_close(case["params"], one["params"], (arch, shape))
+    _params_close(case["params"], one["params"], (arch, shape), one["grads"])
+
+
+@pytest.mark.parametrize("arch,shape", ALL_CASES)
+def test_mesh_grads_match_reference(runs, arch, shape):
+    """Every step's gradients, before the optimizer, within ``GRAD_RTOL``
+    of the JAX package's."""
+    _, case = _case(runs, arch, shape)
+    _grads_close(case["grads"], runs["ref"][arch][2], (arch, shape),
+                 _cfg(arch))
+
+
+@pytest.mark.parametrize("arch,shape", ALL_CASES)
+def test_mesh_grads_match_one_rank(runs, arch, shape):
+    ranks, case = _case(runs, arch, shape)
+    _grads_close(case["grads"], ranks[0]["one"][arch]["grads"],
+                 (arch, shape))
 
 
 @pytest.mark.parametrize("arch,shape", ALL_CASES)
 def test_attention_layout_first_fit(runs, arch, shape):
-    """The recorded first fit: KV heads over ``model`` where they divide
-    it (granite's one KV head does not: the query time), and only the
-    reference's activation names were recorded."""
+    """The recorded first fit is the reference's: KV heads over ``model``
+    where they divide it after the reference's transient repeat (granite's
+    one KV head is repeated to the model axis's size on (1, 2) and (2, 2),
+    as ``repro/models/transformer.py`` repeats it), else the query time;
+    and only the reference's activation names were recorded."""
     from repro_torch.sharding import Rules
     _, case = _case(runs, arch, shape)
     lay = case["layouts"]
-    kv = C.get_reduced(arch).n_kv_heads
-    want = ("data", None, "model", None, None) if kv % shape[1] == 0 \
+    cfg = C.get_reduced(arch)
+    kv, h, m = cfg.n_kv_heads, cfg.n_heads, shape[1]
+    if kv % m and h % m == 0:
+        kv = next(kv * r for r in range(2, h // kv + 1)
+                  if (kv * r) % m == 0 and h % (kv * r) == 0)
+    want = ("data", None, "model", None, None) if kv % m == 0 \
         else ("data", "model", None, None, None)
     assert lay["first_fit"] == want
     assert set(lay) - {"first_fit"} <= set(Rules.ACT_RULES)
@@ -524,7 +675,9 @@ def test_moe_drops_equal_one_rank(runs, shape):
     if shape[0] > 1:
         assert case["per_rank"] != one["drops"], case["per_rank"]
     _metrics_close(case["metrics"], one["metrics"], ("drops", shape))
-    _params_close(case["params"], one["params"], ("drops", shape))
+    _params_close(case["params"], one["params"], ("drops", shape),
+                  one["grads"])
+    _grads_close(case["grads"], one["grads"], ("drops", shape))
 
 
 def test_accum_on_2x1(runs):

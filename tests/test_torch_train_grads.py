@@ -36,6 +36,7 @@ from repro.configs import get_reduced as jax_reduced
 from repro.models import api as japi
 from repro_torch import configs as C
 from repro_torch.models import api, convert
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 LOSS_RTOL = 1e-5
@@ -202,7 +203,7 @@ def test_bmm_f32_backward_on_meta():
     the op exists, the gradients come out in the inputs' shape and
     dtype."""
     a, b = _bf16_pair("meta")
-    out = T._bmm_f32(a, b)
+    out = L.bmm_f32(a, b)
     assert out.dtype == torch.float32 and out.shape == (3, 5, 6)
     out.sum().backward()
     assert a.grad.shape == a.shape and a.grad.dtype == torch.bfloat16
@@ -214,7 +215,7 @@ def test_bmm_f32_without_autograd_calls_the_op(monkeypatch):
     ``no_grad``; inputs that need no gradient) calls the float32-out op
     directly, not through ``_BmmF32``; one that it records goes
     through it.  On ``meta``, where the card's op exists."""
-    calls, real = [], T._BmmF32
+    calls, real = [], L._BmmF32
 
     class Spy(real):
         @staticmethod
@@ -222,15 +223,15 @@ def test_bmm_f32_without_autograd_calls_the_op(monkeypatch):
             calls.append(1)
             return real.forward(ctx, a, b)
 
-    monkeypatch.setattr(T, "_BmmF32", Spy)
+    monkeypatch.setattr(L, "_BmmF32", Spy)
     a, b = _bf16_pair("meta", requires_grad=False)
-    assert T._bmm_f32(a, b).dtype == torch.float32
+    assert L.bmm_f32(a, b).dtype == torch.float32
     a, b = _bf16_pair("meta")
     with torch.no_grad():
-        out = T._bmm_f32(a, b)
+        out = L.bmm_f32(a, b)
     assert out.dtype == torch.float32 and not out.requires_grad
     assert calls == []
-    assert T._bmm_f32(a, b).requires_grad and calls == [1]
+    assert L.bmm_f32(a, b).requires_grad and calls == [1]
 
 
 def test_bmm_f32_backward_values(monkeypatch):
@@ -238,12 +239,12 @@ def test_bmm_f32_backward_values(monkeypatch):
     product (card-only) replaced by its upcast: the gradients equal
     autograd's through the upcast product of the bf16-rounded cotangent,
     rounded to bf16."""
-    monkeypatch.setattr(T, "_mm_f32", lambda a, b: torch.bmm(a.float(),
+    monkeypatch.setattr(L, "_mm_f32", lambda a, b: torch.bmm(a.float(),
                                                            b.float()))
     a, b = _bf16_pair("cpu")
     gen = torch.Generator().manual_seed(2)
     g = torch.randn(3, 5, 6, generator=gen)
-    out = T._BmmF32.apply(a, b)
+    out = L._BmmF32.apply(a, b)
     assert torch.equal(out, torch.bmm(a.float(), b.float()))
     out.backward(g)
     a2, b2 = (t.detach().float().requires_grad_(True) for t in (a, b))
