@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's resident TPC-H path, its streamed
 (out-of-core) path, its value layer, its multi-rank path, its serving
-layer, its language-model serving, its language-model training and its
-language-model mesh on one NVIDIA card.
+layer with its batched sweeps, its language-model serving, its
+language-model training and its language-model mesh on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Twelve phases, each of which raises on a failed check (exit code != 0):
+Fifteen phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -198,6 +198,21 @@ Twelve phases, each of which raises on a failed check (exit code != 0):
    ``group_logcf``).  Each run's launches equal its dry-run's (phase 13's
    subprocesses), and the (1, 2) CF equals the (1, 1) CF within
    ``CF_BOUND``.
+15. The batched sweep (``QueryService(sweep_mode="vmap")``,
+   ``db/sweep.py``) on phase 9's SF1 tables, right after phase 9: phase
+   9's 64-point ``q6_family`` sweep in launches of
+   ``VMAP_POINTS_PER_LAUNCH`` points (a ``batch_row_budget``), cold and
+   again as a hit, with the counters reset before it; every point held to
+   phase 9's scan sweep within ``VMAP_RTOL`` of each leaf's scale
+   (``VMAP_CUMULANT_RTOL`` of each cumulant order's).  Then every 4th
+   point with the exact SUM rider (4,096 frequencies) against its own
+   scan sweep (run before the counters reset).  The first launch's 16
+   points again on phase 8 (a)'s one-rank NCCL mesh, bit-equal to one
+   device's (after the counters are read).  ``group_cumulant_sums``
+   and ``group_logcf`` must launch.  Ms a point cold and warm beside phase
+   9's scan sweep in this run and the 143.81 PERF.md records, the peak
+   device memory
+   above the tables, the errors and the launches are printed.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -2415,7 +2430,8 @@ def serving_phase(db, mesh, ref) -> dict:
         check(rinfo["hit"] and rinfo["points"] == n // 2,
               f"resweep: {rinfo}")
         report["sweep"] = dict(points=n, sweep_ms=sweep_ms,
-                               sequential_ms=seq_ms)
+                               sequential_ms=seq_ms,
+                               result=to_host(swept))  # phase 15's ref
         print(f"serving q6 sweep: {n} points {sweep_ms / n:.2f} ms a point "
               f"against {seq_ms / n:.2f} ms a point as sequential submits; "
               f"every point bit-equal; a {n // 2}-point resweep hits "
@@ -2541,6 +2557,194 @@ def serving_phase(db, mesh, ref) -> dict:
           f"{report['seconds']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    return report
+
+
+# --------------------------------- phase 15: the batched (vmap) sweep
+#: phase 15's launches: 64 points in launches of this many
+VMAP_POINTS_PER_LAUNCH = 16
+#: points of the exact-CF family's sweep (every 4th of phase 9's)
+VMAP_EXACT_STRIDE = 4
+#: vmap against scan: each leaf within this share of its largest
+#: magnitude (float32; the one-group passes of the scan sweep against the
+#: grouped passes of the batched one, other kernels and fold orders)
+VMAP_RTOL = 1e-4
+#: cumulant terms: within this share of each order's largest magnitude
+#: (an order's terms change sign, so its sum cancels)
+VMAP_CUMULANT_RTOL = 1e-3
+VMAP_KERNELS = ("group_cumulant_sums", "group_logcf")
+#: phase 9's scan sweep, ms a point, as PERF.md section 5 records it
+SCAN_MS_A_POINT_RECORDED = 143.81
+
+
+def to_host(x):
+    """A result tree with every tensor on the host."""
+    from repro_torch.db.table import Table
+    if isinstance(x, Table):
+        return Table({k: v.cpu() for k, v in x.columns.items()},
+                     x.prob.cpu(), x.valid.cpu(), x.part)
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        parts = [to_host(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x.cpu()
+
+
+def q6_exact_family():
+    """Phase 9's Q6 family with the exact SUM rider of phase 3's
+    ``q6/aggregate_exact`` (4,096 frequencies)."""
+    from repro_torch.db import tpch
+    from repro_torch.db.plans import GroupAgg
+    fam = tpch.q6_family()
+    return GroupAgg(fam.child, (), "q6_value", "SUM", 1, "normal",
+                    extra=fam.extra + (("exact", "q6_value", "SUM",
+                                        "exact"),), num_freq=4096)
+
+
+def sweep_errors(got, want, what: str) -> dict:
+    """Each float leaf's largest |vmap - scan| over its scale (the leaf's
+    largest magnitude; a cumulant order's own), held to ``VMAP_RTOL`` /
+    ``VMAP_CUMULANT_RTOL``; other leaves equal."""
+    import torch
+    lg, lw = dict(leaves(to_host(got))), dict(leaves(want))
+    check(lg.keys() == lw.keys(), f"phase 15 {what}: leaves {sorted(lg)} "
+          f"against {sorted(lw)}")
+    errs = {}
+    for path, w in lw.items():
+        g = lg[path]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"phase 15 {what}{path}: {g.shape} {g.dtype} against "
+              f"{w.shape} {w.dtype}")
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"phase 15 {what}{path} differs")
+            continue
+        g, w = g.double(), w.double()
+        if "cumulants" in path:
+            scale = w.abs().reshape(-1, w.shape[-1]).amax(0)
+            bound = VMAP_CUMULANT_RTOL
+        else:
+            scale = w.abs().max()
+            bound = VMAP_RTOL
+        err = float(((g - w).abs() / scale.clamp_min(1e-30)).max())
+        check(err <= bound, f"phase 15 {what}{path}: vmap off the scan "
+              f"sweep by {err:.3e} of its scale (bound {bound:.0e})")
+        errs[path] = err
+    return errs
+
+
+def vmap_phase(db, scan: dict, mesh=None) -> dict:
+    """Phase 15 (module docstring): ``QueryService(sweep_mode="vmap")`` at
+    SF1 on phase 9's tables.  ``scan`` is phase 9's sweep report (its
+    64-point result on the host under "result"); ``mesh``, phase 8 (a)'s
+    one-rank mesh, where the first launch's points run again."""
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.db.serving import QueryService
+    from repro_torch.kernels import ops
+    card = card_line()
+    t_phase = time.perf_counter()
+    tables = db.tables()
+    dev = db.lineitem.device
+    n = SWEEP_POINTS
+    batch = dict(disc_lo=torch.full((n,), 5, device=dev),
+                 disc_hi=torch.full((n,), 7, device=dev),
+                 qty_lim=torch.arange(1, n + 1, device=dev))
+    exact_batch = {k: v[::VMAP_EXACT_STRIDE] for k, v in batch.items()}
+    m = n // VMAP_EXACT_STRIDE
+    # the exact family's scan reference, before the counters reset
+    (exact_scan, _), exact_scan_ms = timed(lambda: QueryService(
+        tables, capacity=2).sweep(q6_exact_family(), exact_batch))
+    exact_scan = to_host(exact_scan)
+
+    svc = QueryService(tables, capacity=16, sweep_mode="vmap")
+    svc.batch_row_budget = int(VMAP_POINTS_PER_LAUNCH
+                               * svc._per_point_rows(tpch.q6_family()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (swept, info), cold_ms = timed(
+        lambda: svc.sweep(tpch.q6_family(), batch))
+    peak = torch.cuda.max_memory_allocated() - base
+    (again, hit), warm_ms = timed(
+        lambda: svc.sweep(tpch.q6_family(), batch))
+    q6_launches = ops.launches()
+    (exact, exact_info), exact_ms = timed(
+        lambda: svc.sweep(q6_exact_family(), exact_batch))
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    mesh_ms = None
+    if mesh is not None:            # outside the counted window
+        first = slice(0, VMAP_POINTS_PER_LAUNCH)
+        (on_mesh, _), mesh_ms = timed(lambda: QueryService(
+            tables, mesh, sweep_mode="vmap").sweep(
+                tpch.q6_family(), {k: v[first] for k, v in batch.items()}))
+        check(bit_equal(on_mesh, index_tree(swept, first)),
+              "phase 15: the vmap sweep on the mesh is not bit-equal to "
+              "one device's")
+        del on_mesh
+    check(not info["hit"] and info["points"] == n
+          and info["launches"] == n // VMAP_POINTS_PER_LAUNCH,
+          f"phase 15 sweep: {info}")
+    check(hit["hit"] and hit["launches"] == info["launches"],
+          f"phase 15 resweep: {hit}")
+    check_finite("phase 15 q6", swept)
+    check_finite("phase 15 q6 exact", exact)
+    errs = sweep_errors(swept, scan["result"], "q6")
+    errs_again = sweep_errors(again, scan["result"], "q6 (hit)")
+    exact_errs = sweep_errors(exact, exact_scan, "q6 exact")
+    for k in VMAP_KERNELS:
+        check(launches[k] > 0, f"phase 15: {k} not launched")
+    scan_ms = scan["sweep_ms"] / n
+    report = dict(
+        card=card, points=n, launches_a_sweep=info["launches"],
+        points_a_launch=info["chunk"],
+        batch_row_budget=svc.batch_row_budget, cold_ms=cold_ms,
+        warm_ms=warm_ms, ms_a_point=cold_ms / n,
+        warm_ms_a_point=warm_ms / n, scan_ms_a_point=scan_ms,
+        scan_ms_a_point_recorded=SCAN_MS_A_POINT_RECORDED,
+        peak_bytes=peak,
+        q6_launches=q6_launches, launches=launches, errors=errs,
+        errors_hit=errs_again,
+        exact=dict(points=m, ms=exact_ms, scan_ms=exact_scan_ms,
+                   launches=exact_info["launches"], errors=exact_errs),
+        mesh_ms=mesh_ms, seconds=time.perf_counter() - t_phase)
+    grouped = {k: launches[k] for k in VMAP_KERNELS}
+    print(f"phase 15 vmap sweep, q6 at SF1: {n} points in "
+          f"{info['launches']} launches of {info['chunk']}: "
+          f"{cold_ms / n:.2f} ms a point cold, {warm_ms / n:.2f} warm "
+          f"(a hit), against the scan sweep's {scan_ms:.2f} ms a point in "
+          f"phase 9 of this run and {SCAN_MS_A_POINT_RECORDED} ms in "
+          f"PERF.md section 5; peak {peak / 1e9:.2f} GB above the "
+          f"tables; largest error / scale {max(errs.values()):.3e} "
+          f"(bounds {VMAP_RTOL:.0e}, cumulant orders "
+          f"{VMAP_CUMULANT_RTOL:.0e}) [{card}]")
+    print(f"phase 15 vmap sweep, q6 exact (4096 frequencies): {m} points "
+          f"{exact_ms / m:.2f} ms a point against the scan sweep's "
+          f"{exact_scan_ms / m:.2f}; largest error / scale "
+          f"{max(exact_errs.values()):.3e} [{card}]")
+    if mesh is not None:
+        print(f"phase 15 vmap sweep on the one-rank {mesh.backend} mesh: "
+              f"{VMAP_POINTS_PER_LAUNCH} points in {mesh_ms:.1f} ms, "
+              f"bit-equal to one device's first launch [{card}]")
+    print(f"phase 15 grouped-kernel launches: {grouped} (q6 sweeps alone: "
+          f"{ {k: q6_launches[k] for k in VMAP_KERNELS} }); all "
+          f"launches {launches}; phase 15 took {report['seconds']:.1f} s")
+    del swept, again, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def serving_phases(db, mesh, ref) -> dict:
+    """Phases 9 and 15 on phase 8 (a)'s tables (phase 15 under
+    "vmap")."""
+    report = serving_phase(db, mesh, ref)
+    scan = dict(report["sweep"])
+    del report["sweep"]["result"]       # tensors: kept out of the JSON
+    report["vmap"] = vmap_phase(db, scan, mesh)
     return report
 
 
@@ -4214,7 +4418,7 @@ def main() -> int:
 
 
 def run(out_dir, dryruns) -> int:
-    """Phases 1-14 (module docstring)."""
+    """Phases 1-15 (module docstring)."""
     import numpy as np
     import torch
     from repro_torch.db import tpch
@@ -4328,8 +4532,9 @@ def run(out_dir, dryruns) -> int:
 
     report["mesh"] = mesh_phase(
         out_dir, mesh_ref, query_launches,
-        serving=lambda db, mesh: serving_phase(db, mesh, mesh_ref))
+        serving=lambda db, mesh: serving_phases(db, mesh, mesh_ref))
     report["serving"] = report["mesh"].pop("serving")
+    report["vmap"] = report["serving"].pop("vmap")
     torch.cuda.empty_cache()
 
     report["lm"] = lm_phase(card)
@@ -4348,8 +4553,8 @@ def run(out_dir, dryruns) -> int:
 
     # launches: the runs of the TPC-H path, the value-layer path, the
     # streamed path, the mesh path (every rank), the serving path, the
-    # training path, the LM mesh (every rank), phase 13's card cells and
-    # phase 14's pgf runs (every rank).
+    # training path, the LM mesh (every rank), phase 13's card cells,
+    # phase 14's pgf runs (every rank) and phase 15's batched sweeps.
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
@@ -4357,6 +4562,7 @@ def run(out_dir, dryruns) -> int:
     train_launches = report["train"]["launches"]
     lm_mesh_launches = report["mesh_train"]["launches"]
     pgf_mesh_launches = report["pgf_mesh"]["launches"]
+    vmap_launches = report["vmap"]["launches"]
     cell_launches = {k: sum(c["launches"].get(k, 0) for c in
                             report["dryrun"]["b"].values())
                      for k in launches}
@@ -4370,7 +4576,8 @@ def run(out_dir, dryruns) -> int:
                             + stream_launches[name] + mesh_launches[name]
                             + serving_launches[name] + train_launches[name]
                             + lm_mesh_launches[name] + cell_launches[name]
-                            + pgf_mesh_launches.get(name, 0),
+                            + pgf_mesh_launches.get(name, 0)
+                            + vmap_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

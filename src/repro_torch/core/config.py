@@ -32,6 +32,14 @@ def default_float() -> torch.dtype:
     return torch.float64 if _X64["on"] else torch.float32
 
 
+def default_complex() -> torch.dtype:
+    return torch.complex128 if _X64["on"] else torch.complex64
+
+
+def default_int() -> torch.dtype:
+    return torch.int64 if _X64["on"] else torch.int32
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point allocates on; raises when it asks for a
     CUDA card that this host does not have."""

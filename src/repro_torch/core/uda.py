@@ -34,10 +34,11 @@ import torch.nn.functional as F
 from .approx import MAX_ORDER, _bernoulli_cumulant_polys
 from .config import default_float, resolve_device
 
-# The canonical tiling constants: bound the block loop's working set to
-# ~2^23 elements so the (block, F) phase tile stays bounded regardless of
-# distribution width; the floor of 64 keeps even num_freq ~ 2^20 tiles
-# within budget.
+# The canonical tiling constants: rows of a block of the canonical loop
+# (BLOCK), whose working set is bounded to ~2^23 elements so the (block, F)
+# phase tile stays bounded regardless of distribution width; the floor of
+# 64 keeps even num_freq ~ 2^20 tiles within budget.
+BLOCK = 8192
 _BLOCK_FLOOR = 64
 _ELEM_BUDGET = 1 << 23
 _INT32_MIN = torch.iinfo(torch.int32).min
@@ -109,6 +110,11 @@ class UDA:
 
     def update(self, state, probs, values, gids):
         """Fold one block of (already masked) tuples into the state."""
+        raise NotImplementedError
+
+    def accumulate_full(self, state, probs, values, gids, max_groups):
+        """Whole-column accumulate (non-streaming UDAs, and the kernels'
+        route for the cumulant and CF UDAs)."""
         raise NotImplementedError
 
     def merge(self, a, b):
@@ -604,7 +610,7 @@ def _pad(x, pad: int, value=0):
 
 
 def accumulate(udas, probs, values=None, gids=None, *, max_groups: int = 1,
-               states=None, block: int = 8192, cf_operands=None):
+               states=None, block: int = BLOCK, cf_operands=None):
     """Accumulate every UDA in ``udas`` ({name: UDA}) over one column of
     tuples.
 
@@ -723,7 +729,7 @@ def tree_fold(u: UDA, parts):
 
 def accumulate_chunk_states(udas, probs, values=None, gids=None, *,
                             max_groups: int = 1, num_chunks: int = 8,
-                            block: int = 8192, cf_operands=None) -> list:
+                            block: int = BLOCK, cf_operands=None) -> list:
     """Per-canonical-chunk partial states: the column is split into
     ``num_chunks`` contiguous equal chunks (zero-padded with p = 0 rows to
     a chunk multiple) and each chunk runs :func:`accumulate` alone.
@@ -798,6 +804,12 @@ class ChunkStateAccumulator:
         return {name: u.merge(a[name], b[name])
                 for name, u in self.udas.items()}
 
+    @property
+    def filed(self) -> int:
+        """Canonical chunks collected so far (folded or pending): a
+        retried wave must bring only chunks not yet filed."""
+        return self._next + len(self._pending)
+
     def add_wave(self, chunk_ids, parts: list) -> None:
         """File one wave's per-chunk state dicts under their global
         canonical chunk ids (parallel lists).  Waves partition the chunk
@@ -832,7 +844,7 @@ class ChunkStateAccumulator:
 
 def accumulate_chunked(udas, probs, values=None, gids=None, *,
                        max_groups: int = 1, num_chunks: int = 8,
-                       block: int = 8192, cf_operands=None):
+                       block: int = BLOCK, cf_operands=None):
     """Canonical chunk-grid Accumulate + :func:`tree_fold` Merge."""
     if num_chunks <= 1:
         ops_0 = ({name: per_chunk[0]

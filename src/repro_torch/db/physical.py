@@ -546,7 +546,7 @@ def _callable_columns(fn) -> frozenset | None:
     return frozenset(spy.seen)
 
 
-def required_scan_columns(root) -> dict:
+def required_scan_columns(root, at: dict | None = None) -> dict:
     """Per-base-scan required-column demand of a logical plan: map
     ``id(Scan node) -> frozenset`` of the column names the plan above it
     reads (``None`` = analysis failed, ship everything).  Walked
@@ -562,23 +562,32 @@ def required_scan_columns(root) -> dict:
       carry / threshold columns (the plan above an aggregation reads
       group-level output, not scan columns).
 
-    prob/valid always ride the slabs and are not tracked here."""
+    prob/valid always ride the slabs and are not tracked here.  With
+    ``at`` (a dict), each Select predicate and Map column function also
+    records under its ``id`` the columns the plan above it reads of its
+    input (a Map's own column excluded): what a batched sweep's point
+    join there must carry (:mod:`repro_torch.db.sweep`)."""
     from . import plans as L
     out: dict = {}
 
-    def note(scan, need):
-        prev = out.get(id(scan), frozenset())
-        out[id(scan)] = None if (need is None or prev is None) \
+    def note(scan, need, into=out):
+        prev = into.get(id(scan), frozenset())
+        into[id(scan)] = None if (need is None or prev is None) \
             else prev | need
 
     def walk(node, need):
         if isinstance(node, L.Scan):
             note(node, need)
         elif isinstance(node, L.Select):
+            if at is not None:
+                note(node.pred, need, at)
             cols = _callable_columns(node.pred)
             walk(node.child, None if (need is None or cols is None)
                  else need | cols)
         elif isinstance(node, L.Map):
+            if at is not None:
+                note(node.fn, None if need is None else need - {node.name},
+                     at)
             cols = _callable_columns(node.fn)
             walk(node.child, None if (need is None or cols is None)
                  else (need - {node.name}) | cols)

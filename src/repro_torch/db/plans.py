@@ -56,6 +56,7 @@ from . import cost as C
 from . import distributed as dist
 from . import operators as ops
 from . import physical as phys
+from . import sweep
 from .report import ReportBuilder, nan_count
 from .table import HostTable, Table
 
@@ -692,7 +693,8 @@ def _canonical_rows(pnode, caps: dict) -> int:
 
 
 def _chunk_parts(udas_d, probs, values: dict, ids, mg: int, real: int,
-                 nslots: int, cf_operands=None) -> list:
+                 nslots: int, cf_operands=None,
+                 block: int = uda.BLOCK) -> list:
     """Per-chunk-slot states of ``nslots`` equal slots of the columns: the
     first ``real`` chunks accumulated, the rest (padding chunks past the
     canonical grid) init states that launch nothing."""
@@ -702,7 +704,7 @@ def _chunk_parts(udas_d, probs, values: dict, ids, mg: int, real: int,
             for k, v in values.items()}
     parts = uda.accumulate_chunk_states(
         udas_d, probs[:rows], vals, ids[:rows], max_groups=mg,
-        num_chunks=real, cf_operands=cf_operands) if real else []
+        num_chunks=real, cf_operands=cf_operands, block=block) if real else []
     fill = {name: u.init(mg, probs.dtype, probs.device)
             for name, u in udas_d.items()}
     return parts + [fill] * (nslots - real)
@@ -822,6 +824,15 @@ def compile_plan(root: Node, mesh=None, *,
     # this rank's real chunk slots (slots past the grid only pad)
     real_local = max(0, min(local_chunks, chunks - rank * local_chunks))
     needed_params = plan_params(root)
+    sweep_demand: dict = {}
+
+    def demand(fn):
+        """The columns the plan reads above the node of ``fn`` (a batched
+        sweep's point join there carries only these; None: all)."""
+        if not sweep_demand:
+            sweep_demand["at"] = {}
+            phys.required_scan_columns(root, at=sweep_demand["at"])
+        return sweep_demand["at"].get(id(fn))
     if stats_tables:
         # Host-side stand-ins for the bucket sizing, padded as the
         # runtime tables are.
@@ -838,7 +849,10 @@ def compile_plan(root: Node, mesh=None, *,
         the binding that runs it.  The streamed executor binds the SAME
         interpreter to every wave's slab (the StreamedScan resolves to the
         slab), so resident and streamed execution share one code path
-        below the aggregation."""
+        below the aggregation.  ``params`` may be a
+        :class:`repro_torch.db.sweep.Points` batch (a batched sweep: the
+        parameterized nodes join their input with the points)."""
+        points = params if isinstance(params, sweep.Points) else None
 
         def sharded(t: Table) -> bool:
             return ax is not None and isinstance(t.part, phys.RowBlocked)
@@ -851,6 +865,18 @@ def compile_plan(root: Node, mesh=None, *,
             if sharded(t) or hash_partitioned(t):
                 return dist.group_ids_sharded(t, list(keys), mg, ax)
             return ops.group_ids(t, list(keys), mg)
+
+        def unswept(t: Table, what: str) -> Table:
+            """``t``, refused when swept: ``what`` feeds a PartitionedAgg,
+            whose owners place rows by canonical chunk position, which
+            the points of a swept row share."""
+            if points is not None and sweep.is_swept(t):
+                raise ValueError(
+                    f"sweep_mode='vmap' cannot batch a {what} over swept "
+                    "rows (the co-partitioned pipeline or "
+                    "agg_shuffle_budget): lower the family without "
+                    "copartition and agg_shuffle_budget")
+            return t
 
         def rel_key_columns(t: Table, keys, ids, mg):
             if sharded(t) or hash_partitioned(t):
@@ -865,8 +891,16 @@ def compile_plan(root: Node, mesh=None, *,
             Finalize selected by ``kind``."""
             pa = node.child
             t = run(pa.child)
+            swept = points is not None and sweep.is_swept(t)
+            if swept:       # (group, point) groups, g * N + j
+                ids, gvalid = sweep.group_ids(
+                    t, pa.keys, pa.max_groups, points.n,
+                    ax if sharded(t) else None)
+                pa = dataclasses.replace(
+                    pa, max_groups=pa.max_groups * points.n)
             mg = pa.max_groups
-            ids, merged, gvalid = rel_group_ids(t, pa.keys, mg)
+            if not swept:
+                ids, merged, gvalid = rel_group_ids(t, pa.keys, mg)
             label = rb.begin_agg(node.kind) if rb is not None else ""
             if rb is not None:
                 code_live, big = ops.live_key_codes(t, list(pa.keys))
@@ -890,6 +924,9 @@ def compile_plan(root: Node, mesh=None, *,
             elif sharded(t):
                 nslots, real = local_chunks, real_local
             exact_names, slabs = _pass_slabs(pa, cf_budget_elems)
+            # a swept block holds BLOCK rows of every point, as a block of
+            # the reference's vmapped lane does
+            block = uda.BLOCK * (points.n if swept else 1)
             rows = real * (probs.shape[0] // nslots)
             mirrored = model_size > 1 and _mirrored(
                 pa, exact_names, slabs, probs[:probs.shape[0] // nslots],
@@ -905,7 +942,7 @@ def compile_plan(root: Node, mesh=None, *,
                 if sharded(t) or hash_partitioned(t):
                     parts = _chunk_parts(udas_i, probs, vals_i, acc_ids,
                                          mg, real, nslots,
-                                         cf_operands or None)
+                                         cf_operands or None, block)
                     sts = (dist.allgather_merge(udas_i, parts, ax, chunks,
                                                 shards) if sharded(t)
                            else dist.partitioned_merge(udas_i, parts, ax,
@@ -913,16 +950,32 @@ def compile_plan(root: Node, mesh=None, *,
                 else:
                     sts = uda.accumulate_chunked(
                         udas_i, probs, vals_i, acc_ids, max_groups=mg,
-                        num_chunks=chunks, cf_operands=cf_operands or None)
+                        num_chunks=chunks, cf_operands=cf_operands or None,
+                        block=block)
                 sts = _gather_model_slabs(udas_i, sts, exact_names, cnt,
                                           max_ax, mg == 1, mirrored)
                 _append_slab(states, udas, udas_i, sts)
             for name in exact_names:            # full-range Finalize UDA
                 udas[name] = _agg_uda("SUM", "exact", pa.kappa, pa.num_freq)
-            return _finalize_pass(
-                node, pa, udas, states, gvalid,
-                lambda cols: rel_key_columns(t, cols, ids, mg),
-                rb=rb, label=label, params=params)
+            key_columns = lambda cols: rel_key_columns(t, cols, ids, mg)
+            fin_params = params
+            if points is not None and not swept \
+                    and isinstance(node.threshold, Param):
+                # a swept threshold over unswept states: every point
+                # compares its own threshold with the same states
+                states = {k: sweep.expand_state(st, points.n)
+                          for k, st in states.items()}
+                gvalid = sweep.expand(gvalid, points.n)
+                key_columns = lambda cols: {
+                    k: sweep.expand(v, points.n)
+                    for k, v in rel_key_columns(t, cols, ids, mg).items()}
+                swept = True
+            if swept:
+                fin_params = points.per_group(gvalid.shape[0] // points.n)
+            out = _finalize_pass(node, pa, udas, states, gvalid,
+                                 key_columns, rb=rb, label=label,
+                                 params=fin_params)
+            return sweep.mark(out, points.n) if swept else out
 
         def run(node: phys.PhysNode):
             if isinstance(node, (phys.ShardScan, phys.StreamedScan)):
@@ -931,6 +984,12 @@ def compile_plan(root: Node, mesh=None, *,
                 return tables[node.name].with_part(node.part)
             if isinstance(node, phys.PhysSelect):
                 pred = node.pred
+                if isinstance(pred, Parameterized) and points is not None:
+                    t = run(node.child)
+                    mask = sweep.per_point(t, points, pred)
+                    if sweep.is_swept(t):
+                        return t.with_valid(t.valid & mask)
+                    return sweep.point_join(t, points, demand(pred), mask)
                 if isinstance(pred, Parameterized):
                     return ops.select(run(node.child),
                                       lambda t: pred(t, params))
@@ -938,6 +997,11 @@ def compile_plan(root: Node, mesh=None, *,
             if isinstance(node, phys.PhysMap):
                 t = run(node.child)
                 fn = node.fn
+                if isinstance(fn, Parameterized) and points is not None:
+                    col = sweep.per_point(t, points, fn)
+                    if not sweep.is_swept(t):
+                        t = sweep.point_join(t, points, demand(fn))
+                    return t.with_column(node.name, col)
                 col = fn(t, params) if isinstance(fn, Parameterized) \
                     else fn(t)
                 return t.with_column(node.name, col)
@@ -953,13 +1017,18 @@ def compile_plan(root: Node, mesh=None, *,
             if isinstance(node, phys.ShuffleJoin):
                 lt, rt = run(node.left), run(node.right)
                 lbl = rb.begin_exchange("shuffle_join") if rb else ""
+                # swept probe rows: one point's bucket for every point
+                probe = node.probe_bucket * (
+                    points.n if points is not None and sweep.is_swept(lt)
+                    else 1)
                 return dist.shuffle_fk_join(
                     lt, rt, node.left_key, node.right_key,
                     list(node.right_cols), ax, n_shards=shards,
                     build_bucket=node.build_bucket,
-                    probe_bucket=node.probe_bucket, report=rb, label=lbl)
+                    probe_bucket=probe, report=rb, label=lbl)
             if isinstance(node, phys.CoPartitionedJoin):
-                lt, rt = run(node.left), run(node.right)
+                lt = unswept(run(node.left), "CoPartitionedJoin")
+                rt = run(node.right)
                 lbl = rb.begin_exchange("copart_join") if rb else ""
                 return dist.copartitioned_fk_join(
                     lt, rt, node.left_key, node.right_key,
@@ -969,7 +1038,7 @@ def compile_plan(root: Node, mesh=None, *,
                     chunk_size=_canonical_rows(node.left, caps) // chunks,
                     num_chunks=chunks, report=rb, label=lbl)
             if isinstance(node, phys.Repartition):
-                t = run(node.child)
+                t = unswept(run(node.child), "Repartition")
                 lbl = rb.begin_exchange("repartition") if rb else ""
                 return dist.repartition_by_key(
                     t, node.key, list(node.carry_cols), ax,
@@ -992,6 +1061,8 @@ def compile_plan(root: Node, mesh=None, *,
             if sharded(out):
                 out = dist.gather_table(out, ax)
                 n = _canonical_rows(proot, caps)
+                if isinstance(params, sweep.Points) and sweep.is_swept(out):
+                    n *= params.n
                 out = Table({k: v[:n] for k, v in out.columns.items()},
                             out.prob[:n], out.valid[:n], out.part)
             out = out.with_part(phys.Replicated())
@@ -1374,6 +1445,21 @@ def compile_plan(root: Node, mesh=None, *,
                 out = interpret(resident, proot, caps, rb, env)
             return (out, rb.build()) if with_report else out
 
+        def sweep_runner(batch: dict):
+            """Every point of ``batch`` (name -> length-N tensor) in one
+            batched pass (:mod:`repro_torch.db.sweep`); every leaf of the
+            result gains a leading N axis.  Resident plans without a
+            report only; on a mesh, the same bits as ``mesh=None``."""
+            if streamed or with_report:
+                raise ValueError(
+                    "a batched sweep runs a resident plan without a "
+                    "report: drop device_row_budget and with_report")
+            check_params(batch)
+            points = sweep.Points(batch)
+            return sweep.unstack(interpret(resident, proot, caps, None,
+                                           points), points.n)
+
+        runner.sweep = sweep_runner
         return runner
 
     def compiled(tables: Dict[str, Table], params: dict | None = None):

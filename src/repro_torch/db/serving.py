@@ -28,13 +28,16 @@ sixteen entries over a HostTable catalogue hold one device copy of it.
 (optionally under a :class:`~repro_torch.db.plans.RetryPolicy`; the
 service remembers each plan's converged ``final_params``, so a resubmit
 starts at the healed point and hits the cache in one attempt), or
-``sweep`` a parameterized family over N points.  A sweep runs every point
-through the family's one binding with that point's scalars, in order
-(``sweep_mode="scan"``), so point i is bit-equal to a sequential submit at
-point i.  The reference's ``sweep_mode="vmap"`` vectorises one traced
-graph with ``jax.vmap``; the port's eager executor has data-dependent
-shapes and host syncs, so it has no counterpart yet (ROADMAP Queue 1
-item 8).
+``sweep`` a parameterized family over N points.  Two batching modes, as
+in the reference.  The default, ``sweep_mode="scan"``, runs every point
+through the family's one binding with that point's scalars, in order, so
+point i is bit-equal to a sequential submit at point i.  ``"vmap"`` runs
+the points as one batched pass through the same binding
+(:mod:`repro_torch.db.sweep`: the point is an extra group key, joined in
+at the parameterized predicate), in launches of at most
+``batch_row_budget`` batched rows (:func:`repro_torch.db.cost.
+sweep_chunk_points`); its fold order differs, so it is held to the scan
+sweep within a tolerance (the reference's vmap: ~1 ulp).
 """
 from __future__ import annotations
 
@@ -43,20 +46,13 @@ from typing import Dict
 
 import torch
 
+from . import cost as C
 from . import physical as phys
-from .plans import (LRUCache, Node, Placement, compile_plan,
+from . import sweep as S
+from .plans import (LRUCache, Node, Placement, Scan, compile_plan,
                     mesh_fingerprint, plan_key, plan_params, run_plan)
 from .report import ServingStats
 from .table import Table
-
-#: why ``sweep_mode="vmap"`` is refused
-VMAP_GAP = (
-    "sweep_mode='vmap' has no counterpart in the PyTorch port: the "
-    "reference vectorises one traced graph with jax.vmap, while the eager "
-    "executor has data-dependent shapes and host syncs.  A batched design "
-    "(e.g. sweep points as groups through operators.general_join) is "
-    "ROADMAP Queue 1 item 8; use sweep_mode='scan' (bit-equal to "
-    "sequential submits)")
 
 
 def cache_key(root: Node, mesh=None, opts: dict | None = None) -> tuple:
@@ -67,6 +63,22 @@ def cache_key(root: Node, mesh=None, opts: dict | None = None) -> tuple:
     frozen = tuple(sorted((k, phys.structural_key(v))
                           for k, v in (opts or {}).items()))
     return ("serve", plan_key(root), mesh_fingerprint(mesh), frozen)
+
+
+def _scan_names(root: Node) -> tuple:
+    """Base tables a logical plan reads (for sweep residency sizing)."""
+    names: set = set()
+
+    def walk(n):
+        if isinstance(n, Scan):
+            names.add(n.name)
+        for f in ("child", "left", "right"):
+            c = getattr(n, f, None)
+            if isinstance(c, Node):
+                walk(c)
+
+    walk(root)
+    return tuple(sorted(names))
 
 
 def _same_tables(a: dict, b: dict) -> bool:
@@ -163,22 +175,24 @@ class PlanCache:
         self.placement.clear()
 
 
-def _tree_stack(trees: list):
-    """Stack equal-structured results (dicts, tuples, NamedTuples, Tables
-    of tensors) leaf by leaf along a new leading axis."""
+def _tree_join(trees: list, join=torch.stack):
+    """Join equal-structured results (dicts, tuples, NamedTuples, Tables
+    of tensors) leaf by leaf: stacked along a new leading axis, or with
+    ``join=torch.cat`` concatenated along the leading one."""
     first = trees[0]
     if isinstance(first, Table):
-        return Table({k: torch.stack([t.columns[k] for t in trees])
+        return Table({k: join([t.columns[k] for t in trees])
                       for k in first.columns},
-                     torch.stack([t.prob for t in trees]),
-                     torch.stack([t.valid for t in trees]), first.part)
+                     join([t.prob for t in trees]),
+                     join([t.valid for t in trees]), first.part)
     if isinstance(first, dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in first}
+        return {k: _tree_join([t[k] for t in trees], join) for k in first}
     if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*(_tree_stack(list(xs)) for xs in zip(*trees)))
+        return type(first)(*(_tree_join(list(xs), join)
+                             for xs in zip(*trees)))
     if isinstance(first, (tuple, list)):
-        return type(first)(_tree_stack(list(xs)) for xs in zip(*trees))
-    return torch.stack(trees)
+        return type(first)(_tree_join(list(xs), join) for xs in zip(*trees))
+    return join(trees)
 
 
 class QueryService:
@@ -188,28 +202,30 @@ class QueryService:
 
     ``capacity`` bounds the plan cache; ``policy`` is the default
     self-healing :class:`~repro_torch.db.plans.RetryPolicy` (None = no
-    retry loop); ``sweep_mode`` must be ``'scan'`` (``'vmap'`` raises
-    NotImplementedError, see the module docstring).  The reference's
-    ``batch_row_budget`` has no counterpart: a scan sweep holds no
-    per-point residency to bound (it returns with batched sweeps, ROADMAP
-    Queue 1 item 8).  Remaining keywords become default ``compile_plan``
-    options of every request (e.g. ``device="cpu"``).  Replacing a table
-    in ``self.tables`` re-binds the plans that run next and frees the
-    bindings made for the old table at the next request.
+    retry loop); ``sweep_mode`` is ``'scan'`` (bit-equal to sequential
+    submits, the default) or ``'vmap'`` (one batched pass, held to scan
+    within a tolerance; see the module docstring); ``batch_row_budget``
+    caps a ``'vmap'`` sweep's batched rows, splitting it into launches
+    (:func:`repro_torch.db.cost.sweep_chunk_points`; a scan sweep holds
+    one point's rows at a time and ignores it).  Remaining keywords become
+    default ``compile_plan`` options of every request (e.g.
+    ``device="cpu"``).  Replacing a table in ``self.tables`` re-binds the
+    plans that run next and frees the bindings made for the old table at
+    the next request.
     """
 
     def __init__(self, tables: Dict[str, Table], mesh=None, *,
                  capacity: int = 16, policy=None,
+                 batch_row_budget: int | None = None,
                  sweep_mode: str = "scan", **default_opts):
         if sweep_mode not in ("scan", "vmap"):
             raise ValueError(f"sweep_mode must be 'scan' or 'vmap', "
                              f"got {sweep_mode!r}")
-        if sweep_mode == "vmap":
-            raise NotImplementedError(VMAP_GAP)
         self.tables = tables
         self.mesh = mesh
         self.cache = PlanCache(capacity)
         self.policy = policy
+        self.batch_row_budget = batch_row_budget
         self.sweep_mode = sweep_mode
         self.default_opts = default_opts
         self.stats = ServingStats()
@@ -272,12 +288,21 @@ class QueryService:
         ``param_batch`` maps each of the plan's :class:`~repro_torch.db.
         plans.Param` names to a length-N vector (taken as it is by
         ``torch.as_tensor``: its dtype and device are kept); the result
-        gains a leading N axis on every leaf.  Point i runs the family's
-        one binding with ``{name: batch[name][i]}`` -- the 0-d tensors a
-        sequential ``submit`` of that point passes -- so it is bit-equal
-        to that submit, for any N.  Every further sweep of the family, of
-        any size, is a cache hit.  ``info`` holds ``hit``, ``points`` and
-        ``seconds``.
+        gains a leading N axis on every leaf.  Under ``sweep_mode=
+        "scan"`` point i runs the family's one binding with ``{name:
+        batch[name][i]}`` -- the 0-d tensors a sequential ``submit`` of
+        that point passes -- so it is bit-equal to that submit, for any N.
+        Under ``"vmap"`` the points run through the same binding as
+        batched passes of at most ``batch_row_budget`` rows
+        (``info["chunk"]`` points each, ``info["launches"]`` of them),
+        within a tolerance of the scan sweep (on a mesh, mesh=None's vmap
+        bits); a plan family the point join cannot batch is refused with a
+        ``ValueError`` naming the construct
+        (:func:`repro_torch.db.sweep.check_plan`), as is a vmap sweep with
+        ``with_report`` or through the co-partitioned pipeline.  Every
+        further sweep of the family,
+        of any size, is a cache hit.  ``info`` holds ``hit``, ``points``
+        and ``seconds``.
         """
         merged = self._merged(opts)
         if merged.get("device_row_budget") is not None:
@@ -285,6 +310,8 @@ class QueryService:
                 "parameter sweeps keep the catalogue resident: a streamed "
                 "plan (device_row_budget) would re-stream its table for "
                 "every point; drop device_row_budget for swept families")
+        if self.sweep_mode == "vmap":
+            S.check_plan(root)
         names = sorted(plan_params(root))
         if not names:
             raise ValueError("sweep() needs a parameterized plan (no "
@@ -303,8 +330,29 @@ class QueryService:
         self.cache.drop_stale(self.tables)
         entry, hit = self.cache.entry(root, self.mesh, **merged)
         runner = entry.bind(self.tables)
-        out = _tree_stack([runner({k: v[i] for k, v in batch.items()})
-                           for i in range(n)])
+        if self.sweep_mode == "scan":
+            out = _tree_join([runner({k: v[i] for k, v in batch.items()})
+                              for i in range(n)])
+            self.stats.record(hit=hit, points=n)
+            return out, dict(hit=hit, points=n,
+                             seconds=time.perf_counter() - t0)
+        chunk = C.sweep_chunk_points(self._per_point_rows(root),
+                                     self.batch_row_budget, n)
+        outs = [runner.sweep({k: v[lo:lo + chunk] for k, v in batch.items()})
+                for lo in range(0, n, chunk)]
+        out = outs[0] if len(outs) == 1 else _tree_join(outs, torch.cat)
         self.stats.record(hit=hit, points=n)
-        return out, dict(hit=hit, points=n,
+        return out, dict(hit=hit, points=n, chunk=chunk,
+                         launches=len(outs),
                          seconds=time.perf_counter() - t0)
+
+    def _per_point_rows(self, root: Node) -> float:
+        """Residency one sweep point adds: the referenced base tables'
+        column elements (the reference's measure; the point join carries
+        only the columns the plan reads above it, so this overcounts)."""
+        total = 0.0
+        for name in _scan_names(root):
+            t = self.tables.get(name)
+            if t is not None:
+                total += t.capacity * (len(t.columns) + 2)
+        return total

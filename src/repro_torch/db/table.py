@@ -75,8 +75,18 @@ class Table:
     def device(self) -> torch.device:
         return self.prob.device
 
+    def num_valid(self) -> torch.Tensor:
+        return torch.sum(self.valid)
+
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.columns[name]
+
+    def to_pandas_like(self) -> dict:
+        """The valid rows as numpy arrays, the probabilities under "p"."""
+        mask = self.valid.cpu().numpy()
+        out = {k: v.cpu().numpy()[mask] for k, v in self.columns.items()}
+        out["p"] = self.prob.cpu().numpy()[mask]
+        return out
 
     # -- functional updates --------------------------------------------------
     def with_valid(self, valid) -> "Table":

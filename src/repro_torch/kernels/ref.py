@@ -104,6 +104,15 @@ def group_cumulants_ref(probs, values, gids, num_groups: int,
     return segment_sum((kappas * vpow).T, gids, num_groups)
 
 
+def atleastone_ref(probs, segment_ids, num_segments: int):
+    """Per-group 1 - prod(1 - p) (paper Table I row V), as a direct
+    product -- independent of the log-domain accumulation in
+    ``core/uda.py``."""
+    q = torch.ones((num_segments,), dtype=probs.dtype, device=probs.device)
+    q = q.scatter_reduce(0, segment_ids, 1.0 - probs, "prod")
+    return 1.0 - q
+
+
 def polymul_ref(a, b):
     """Full linear convolution c[t] = sum_{i+j=t} a[i] b[j] (schoolbook),
     straight from the definition: one shifted axpy per coefficient of the

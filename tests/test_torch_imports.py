@@ -1,17 +1,23 @@
-"""Package boundary of the port: no module under ``src/repro_torch/`` and
-not ``chip_smoke.py`` imports JAX or the JAX package ``repro`` (checked
-on the source's syntax tree, so an import inside a function counts too,
-and so does ``importlib.import_module`` of a string or f-string that
-names a ``repro.`` module)."""
+"""Package boundary of the port: no module under ``src/repro_torch/``,
+not ``chip_smoke.py`` and no torch twin of an example
+(``examples/*_torch.py``) imports JAX or the JAX package ``repro``
+(checked on the source's syntax tree, so an import inside a function
+counts too, and so does ``importlib.import_module`` of a string or
+f-string that names a ``repro.`` module).  The twins import only
+``repro_torch``, ``torch``, ``numpy`` and the standard library."""
 import ast
 import pathlib
+import sys
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLE_ROOTS = {"repro_torch", "torch", "numpy"} \
+    | set(sys.stdlib_module_names)
 
 
 def _imported_roots(path: pathlib.Path):
@@ -55,6 +61,20 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_example_twins_import_only_the_port_torch_numpy(path):
+    bad = sorted(set(_imported_roots(path)) - EXAMPLE_ROOTS)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_example_twins():
+    assert {p.name for p in EXAMPLES} == {
+        "quickstart_torch.py", "tpch_probabilistic_torch.py",
+        "out_of_core_query_torch.py", "distributed_query_torch.py",
+        "train_lm_torch.py"}
+
+
 def test_guard_sees_the_whole_package():
     names = {p.name for p in FILES}
     assert {"uda.py", "plans.py", "physical.py", "tpch.py", "pb_cf.py",
@@ -63,7 +83,7 @@ def test_guard_sees_the_whole_package():
             "mesh.py", "ranks.py", "serving.py", "serve.py", "api.py",
             "transformer.py", "moe.py", "rglru.py", "rwkv6.py",
             "base.py", "sharding.py", "elastic.py", "checkpoint.py",
-            "trainer.py"} <= names
+            "trainer.py", "sweep.py"} <= names
 
 
 @pytest.mark.parametrize("source,bad", [

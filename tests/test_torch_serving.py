@@ -482,8 +482,10 @@ def test_sweep_and_submit_validation(tables):
         svc.sweep(fam, good, device_row_budget=64)
     with pytest.raises(ValueError, match="sweep_mode"):
         QueryService(tables, sweep_mode="loop")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        QueryService(tables, sweep_mode="vmap")
+    vmap, vinfo = QueryService(tables, sweep_mode="vmap", **CPU).sweep(
+        fam, good)
+    assert vinfo["points"] == 4 and vinfo["launches"] == 1
+    assert vmap["confidence"].shape == (4, 1)
     fn = compile_plan(fam, **CPU)
     with pytest.raises(ValueError, match="parameters mismatch"):
         fn(tables)
