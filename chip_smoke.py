@@ -6,7 +6,7 @@ language-model training and its language-model mesh on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
 
-Fifteen phases, each of which raises on a failed check (exit code != 0):
+Sixteen phases, each of which raises on a failed check (exit code != 0):
 
 1. Set-up: print the card's name and power limit, build the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time.
@@ -153,7 +153,7 @@ Fifteen phases, each of which raises on a failed check (exit code != 0):
 12. LM mesh (``sharding.Rules``, ``sharding.ShardedModel``, the sharded
    ``make_train_step``, ``checkpoint`` under a mesh, ``train.elastic``):
    four gloo ranks sharing the card, each resetting its launch counters
-   (all must stay 0).  (a) yi_6b at its full widths cut to 2 layers,
+   (all must stay 0).  (a) yi_6b at its full widths cut to 1 layer,
    bf16, 3 steps of 4 x 512 tokens (AdamW, remat) on a (2, 2) ("data",
    "model") mesh, against the same model and batches on one rank (rank
    0, before the mesh runs): loss within ``MESH_LOSS_RTOL``, grad norm
@@ -167,7 +167,7 @@ Fifteen phases, each of which raises on a failed check (exit code != 0):
    with ``elastic.reshard``: every leaf bit-equal to the saved block; a
    step after it bit-equal to (a)'s third.  (e) yi_6b as in (a) on a
    (1, 4) mesh (its 4 KV heads split four ways), against the same one
-   rank.  (f) yi_6b's 2 layers with float32 weights on (2, 2): a decode
+   rank.  (f) yi_6b's layer with float32 weights on (2, 2): a decode
    of a 5-token prompt and 3 steps on a cache of blocks (KV heads over the
    model axis) against one rank's, within ``MESH_DECODE_ATOL``.  The
    model axis splits the compute (``sharding.py``'s module docstring:
@@ -213,6 +213,28 @@ Fifteen phases, each of which raises on a failed check (exit code != 0):
    9's scan sweep in this run and the 143.81 PERF.md records, the peak
    device memory
    above the tables, the errors and the launches are printed.
+16. Every sweep the reference's service takes, with reports
+   (``with_report=True``: a stacked ``ExecutionReport``, each count a
+   point's).  (a) Right after phase 15, on phase 9's SF1 tables: TPC-H
+   Q3 as a family with its substitution parameters lifted (SEGMENT on
+   ``customer``, DATE on ``orders`` and ``lineitem``: parameters on both
+   build sides of the nested joins), 16 points (4 segments x 4 dates in
+   March 1995), scan and vmap: every leaf of the vmap sweep within
+   ``VMAP_RTOL`` of the scan sweep's scale (cumulant orders
+   ``VMAP_CUMULANT_RTOL``), every report count equal point by point,
+   ``group_cumulant_sums`` launched (counters reset just before the vmap
+   sweep, read just after).  (b) Phase 15's Q6 vmap sweep again with a
+   report: bit-equal to phase 15's result, its report at every 4th point
+   equal to the scan sweep's.  (c) In phase 14's two gloo ranks sharing
+   the card, after its pgf runs, at SF0.1, 8 points: the Q3 family through
+   CoPartitionedJoin + PartitionedAgg (``copartition=True``, a join budget
+   of 4; both nodes checked in ``compiled.explain``), bit-equal to one
+   device's vmap sweep, no exchange overflowing and its passes' counts
+   equal to one device's;
+   and a join on a computed key at a small ``shuffle_slack`` that
+   overflows at some points and not at others: each point's counts equal
+   the scan sweep's, and exactly the overflowing points are NaN-poisoned.
+   Ms a point, peak memory, errors and launches are printed.
 
 The line before the last is the card's name and power limit; a JSON line
 of per-kernel numbers comes before it; the last line is the fixed result
@@ -2602,32 +2624,36 @@ def q6_exact_family():
                                         "exact"),), num_freq=4096)
 
 
-def sweep_errors(got, want, what: str) -> dict:
+def sweep_errors(got, want, what: str, phase: str = "phase 15") -> dict:
     """Each float leaf's largest |vmap - scan| over its scale (the leaf's
     largest magnitude; a cumulant order's own), held to ``VMAP_RTOL`` /
     ``VMAP_CUMULANT_RTOL``; other leaves equal."""
     import torch
+    what = f"{phase} {what}"
     lg, lw = dict(leaves(to_host(got))), dict(leaves(want))
-    check(lg.keys() == lw.keys(), f"phase 15 {what}: leaves {sorted(lg)} "
+    check(lg.keys() == lw.keys(), f"{what}: leaves {sorted(lg)} "
           f"against {sorted(lw)}")
     errs = {}
     for path, w in lw.items():
         g = lg[path]
         check(g.shape == w.shape and g.dtype == w.dtype,
-              f"phase 15 {what}{path}: {g.shape} {g.dtype} against "
+              f"{what}{path}: {g.shape} {g.dtype} against "
               f"{w.shape} {w.dtype}")
         if not w.is_floating_point():
-            check(torch.equal(g, w), f"phase 15 {what}{path} differs")
+            check(torch.equal(g, w), f"{what}{path} differs")
             continue
         g, w = g.double(), w.double()
+        size = torch.where(torch.isfinite(w), w.abs(), 0.0)
         if "cumulants" in path:
-            scale = w.abs().reshape(-1, w.shape[-1]).amax(0)
+            scale = size.reshape(-1, w.shape[-1]).amax(0)
             bound = VMAP_CUMULANT_RTOL
         else:
-            scale = w.abs().max()
+            scale = size.max()
             bound = VMAP_RTOL
-        err = float(((g - w).abs() / scale.clamp_min(1e-30)).max())
-        check(err <= bound, f"phase 15 {what}{path}: vmap off the scan "
+        diff = (g - w).abs()
+        diff[torch.isnan(g) & torch.isnan(w)] = 0.0
+        err = float((diff / scale.clamp_min(1e-30)).max())
+        check(err <= bound, f"{what}{path}: vmap off the scan "
               f"sweep by {err:.3e} of its scale (bound {bound:.0e})")
         errs[path] = err
     return errs
@@ -2710,7 +2736,8 @@ def vmap_phase(db, scan: dict, mesh=None) -> dict:
         errors_hit=errs_again,
         exact=dict(points=m, ms=exact_ms, scan_ms=exact_scan_ms,
                    launches=exact_info["launches"], errors=exact_errs),
-        mesh_ms=mesh_ms, seconds=time.perf_counter() - t_phase)
+        mesh_ms=mesh_ms, seconds=time.perf_counter() - t_phase,
+        result=to_host(swept), batch=batch)     # phase 16 (b)'s reference
     grouped = {k: launches[k] for k in VMAP_KERNELS}
     print(f"phase 15 vmap sweep, q6 at SF1: {n} points in "
           f"{info['launches']} launches of {info['chunk']}: "
@@ -2739,12 +2766,306 @@ def vmap_phase(db, scan: dict, mesh=None) -> dict:
 
 
 def serving_phases(db, mesh, ref) -> dict:
-    """Phases 9 and 15 on phase 8 (a)'s tables (phase 15 under
-    "vmap")."""
+    """Phases 9, 15 and 16 (a)-(b) on phase 8 (a)'s tables (phase 15
+    under "vmap", phase 16's under "sweep_report")."""
     report = serving_phase(db, mesh, ref)
     scan = dict(report["sweep"])
     del report["sweep"]["result"]       # tensors: kept out of the JSON
     report["vmap"] = vmap_phase(db, scan, mesh)
+    q6 = dict(result=report["vmap"].pop("result"),
+              batch=report["vmap"].pop("batch"),
+              batch_row_budget=report["vmap"]["batch_row_budget"])
+    report["sweep_report"] = sweep_report_phase(db, q6)
+    return report
+
+
+# ------------------------ phase 16: every sweep the reference's service takes
+#: (a) TPC-H Q3's substitution parameters in the spec's own ranges: four
+#: of the five market segments, and four dates in 1995-03-01..31 (days
+#: after ``tpch.DAY0_1995``, 1995-01-01): 16 points
+Q3_SEGMENTS = (0, 1, 2, 3)
+Q3_DATE_DAYS = (59, 69, 79, 89)
+#: (b) phase 15's Q6 points whose scan sweep with a report is run (every
+#: 4th, as phase 15's exact family)
+REPORT_SCAN_STRIDE = 4
+#: (c) SF0.1 on two gloo ranks sharing the card, 8 points
+SF01 = dict(n_orders=150_000, lines_per_order=4, n_parts=20_000,
+            n_suppliers=100, n_customers=15_000, n_nations=25, seed=0)
+SF01_Q3_GROUPS = 32_768
+SWEEP_MESH_POINTS = 8
+#: (c) a shuffle_slack under which the probe rows of the points that
+#: select more lineitem rows overflow their buckets and the others' fit
+SWEEP_MESH_SLACK = 0.5
+#: the co-partitioned pipeline's nodes, which (c) must run
+COPART_NODES = ("CoPartitionedJoin", "PartitionedAgg")
+
+
+def q3_family(max_groups: int, order_join_budget: int | None = None):
+    """TPC-H Q3 (``tpch.q3_plan``'s structure) with its substitution
+    parameters lifted: SEGMENT on ``customer``, DATE on ``orders`` and
+    ``lineitem``; the two parameterized relations below ``lineitem``'s
+    join are its build side."""
+    from repro_torch.db.plans import (FKJoin, GroupAgg, Parameterized, Scan,
+                                      Select)
+    cust = Select(Scan("customer"), Parameterized(
+        lambda t, seg: t["c_mktsegment"] == seg, ("segment",)))
+    orders = Select(Scan("orders"), Parameterized(
+        lambda t, day: t["o_orderdate"] < day, ("date",)))
+    o = FKJoin(orders, cust, "o_custkey", "c_custkey", ("c_mktsegment",))
+    li = Select(Scan("lineitem"), Parameterized(
+        lambda t, day: t["l_shipdate"] > day, ("date",)))
+    j = FKJoin(li, o, "l_orderkey", "o_orderkey",
+               ("o_orderdate", "o_custkey"), gather_budget=order_join_budget)
+    return GroupAgg(j, ("l_orderkey",), "l_extendedprice", "SUM", max_groups,
+                    "normal", extra=(("cumulants", "l_extendedprice", "SUM",
+                                      "cumulants"),))
+
+
+def q3_batch(dev) -> dict:
+    """Q3_SEGMENTS x Q3_DATE_DAYS, segment-major."""
+    import torch
+    from repro_torch.db import tpch
+    days = torch.tensor(Q3_DATE_DAYS, device=dev) + tpch.DAY0_1995
+    return dict(
+        segment=torch.tensor(Q3_SEGMENTS, device=dev).repeat_interleave(
+            len(Q3_DATE_DAYS)),
+        date=days.repeat(len(Q3_SEGMENTS)))
+
+
+def keyed_join_family():
+    """A join on a key computed en route (a Map), grouped on that key:
+    its exchange buckets are sized by ``shuffle_slack``, and with
+    ``copartition=True`` it lowers to the co-partitioned pipeline."""
+    from repro_torch.db.plans import (FKJoin, GroupAgg, Map, Parameterized,
+                                      Scan, Select)
+    sel = Select(Scan("lineitem"), Parameterized(
+        lambda t, lim: t["l_quantity"] < lim, ("qty_lim",)))
+    keyed = Map(sel, "okey", lambda t: t["l_orderkey"])
+    j = FKJoin(keyed, Scan("orders"), "okey", "o_orderkey", ("o_custkey",),
+               gather_budget=4)
+    return GroupAgg(j, ("okey",), "l_quantity", "SUM", Q3_GROUPS)
+
+
+def report_host(rep, points=None) -> dict:
+    """A stacked report's fields with every value on the host (``points``:
+    the indices kept)."""
+    from repro_torch.db.report import FIELDS
+    return {f: {k: (v.cpu() if points is None else v[points].cpu())
+                for k, v in getattr(rep, f).items()}
+            for f in FIELDS if f != "waves"}
+
+
+def reports_equal(got: dict, want: dict, what: str) -> dict:
+    """Every count equal, point by point; each tail mass within
+    ``VMAP_RTOL`` of its scale.  Returns the counts' totals by field."""
+    import torch
+    totals = {}
+    for f, w in want.items():
+        g = got[f]
+        check(g.keys() == w.keys(), f"{what} report {f}: labels "
+              f"{sorted(g)} against {sorted(w)}")
+        for k, x in w.items():
+            check(g[k].shape == x.shape, f"{what} report {f}[{k}]: "
+                  f"{tuple(g[k].shape)} against {tuple(x.shape)}")
+            if f == "tail_mass":
+                scale = float(x.abs().max().clamp_min(1e-30))
+                check(float((g[k] - x).abs().max()) <= VMAP_RTOL * scale,
+                      f"{what} report {f}[{k}] off the scan sweep's")
+            else:
+                check(torch.equal(g[k], x), f"{what} report {f}[{k}]: "
+                      f"{g[k].tolist()} against {x.tolist()}")
+        totals[f] = {k: float(x.sum()) for k, x in w.items()}
+    return totals
+
+
+def sweep_report_phase(db, q6: dict) -> dict:
+    """Phase 16 (a) and (b) (module docstring) on phase 9's SF1 tables.
+    ``q6`` holds phase 15's 64-point vmap result on the host, its batch
+    and its ``batch_row_budget``."""
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.db.serving import QueryService
+    from repro_torch.kernels import ops
+    card = card_line()
+    t_phase = time.perf_counter()
+    tables = db.tables()
+    batch = q3_batch(db.lineitem.device)
+    n = batch["date"].shape[0]
+    fam = q3_family(Q3_GROUPS)
+
+    # (a) the Q3 family: the scan sweep first (outside the counted window)
+    ((scan, srep), _), scan_ms = timed(lambda: QueryService(
+        tables, capacity=2).sweep(fam, batch, with_report=True))
+    scan, srep = to_host(scan), report_host(srep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svc = QueryService(tables, capacity=2, sweep_mode="vmap")
+    ops.reset_launches()
+    ((swept, vrep), info), vmap_ms = timed(
+        lambda: svc.sweep(fam, batch, with_report=True))
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(info["points"] == n and info["launches"] == 1,
+          f"phase 16 (a) sweep: {info}")
+    check(vrep.points == n, f"phase 16 (a): a report of {vrep.points} "
+          "points")
+    check(launches["group_cumulant_sums"] > 0,
+          f"phase 16 (a): group_cumulant_sums not launched: {launches}")
+    check_finite("phase 16 (a) q3", swept)
+    errs = sweep_errors(swept, scan, "q3", phase="phase 16 (a)")
+    totals = reports_equal(report_host(vrep), srep, "phase 16 (a) q3")
+    groups = int(swept["valid"].sum())
+    del swept, vrep, scan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phase 15's Q6 sweep again, with a report
+    qsvc = QueryService(tables, capacity=2, sweep_mode="vmap",
+                        batch_row_budget=q6["batch_row_budget"])
+    ((q6_out, q6_rep), q6_info), q6_ms = timed(lambda: qsvc.sweep(
+        tpch.q6_family(), q6["batch"], with_report=True))
+    check(bit_equal(to_host(q6_out), q6["result"]),
+          "phase 16 (b): the q6 vmap sweep with a report is not bit-equal "
+          "to phase 15's")
+    picked = slice(0, None, REPORT_SCAN_STRIDE)
+    sub = {k: v[picked] for k, v in q6["batch"].items()}
+    ((_, q6_srep), _), q6_scan_ms = timed(lambda: QueryService(
+        tables, capacity=2).sweep(tpch.q6_family(), sub, with_report=True))
+    m = sub["qty_lim"].shape[0]
+    picked_idx = torch.arange(0, q6_rep.points, REPORT_SCAN_STRIDE)
+    q6_totals = reports_equal(report_host(q6_rep, picked_idx),
+                              report_host(q6_srep), "phase 16 (b) q6")
+    del q6_out
+    report = dict(
+        card=card, points=n, scan_ms=scan_ms, vmap_ms=vmap_ms,
+        scan_ms_a_point=scan_ms / n, ms_a_point=vmap_ms / n,
+        peak_bytes=peak, groups=groups, errors=errs, report_totals=totals,
+        launches=launches,
+        q6=dict(points=q6_rep.points, launches=q6_info["launches"],
+                ms_a_point=q6_ms / q6_rep.points, scan_points=m,
+                scan_ms_a_point=q6_scan_ms / m, report_totals=q6_totals),
+        seconds=time.perf_counter() - t_phase)
+    print(f"phase 16 (a) Q3 family at SF1 (segments {Q3_SEGMENTS} x days "
+          f"{Q3_DATE_DAYS} after 1995-01-01, {Q3_GROUPS} groups a point, "
+          f"with reports): vmap {vmap_ms / n:.2f} ms a point in one launch, "
+          f"scan {scan_ms / n:.2f}; peak {peak / 1e9:.2f} GB above the "
+          f"tables; {groups} live groups; largest error / scale "
+          f"{max(errs.values()):.3e} (bounds {VMAP_RTOL:.0e}, cumulant "
+          f"orders {VMAP_CUMULANT_RTOL:.0e}); report counts equal point by "
+          f"point {totals}; launches {launches} [{card}]")
+    print(f"phase 16 (b) phase 15's q6 sweep with a report: {q6_rep.points}"
+          f" points {q6_ms / q6_rep.points:.2f} ms a point in "
+          f"{q6_info['launches']} launches, bit-equal to phase 15's; its "
+          f"report at every {REPORT_SCAN_STRIDE}th point equal to the scan "
+          f"sweep's ({q6_scan_ms / m:.2f} ms a point); phase 16 (a)-(b) "
+          f"took {report['seconds']:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def sweep_mesh_rank(dev) -> dict:
+    """One of phase 16 (c)'s two gloo ranks sharing the card: the SF0.1
+    Q3 family's vmap sweep with a report through the co-partitioned
+    pipeline against the one-device vmap sweep (computed here), and the
+    keyed join family's vmap and scan sweeps with reports at
+    ``SWEEP_MESH_SLACK``."""
+    import torch
+    from repro_torch.db import tpch
+    from repro_torch.db.plans import compile_plan
+    from repro_torch.db.serving import QueryService
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    mesh = make_mesh((2,), ("data",), backend="gloo", device=dev)
+    tables = tpch.generate(**SF01, device=dev).tables()
+    n = SWEEP_MESH_POINTS
+    batch = {k: v[:n] for k, v in q3_batch(dev).items()}
+    fam = q3_family(SF01_Q3_GROUPS, order_join_budget=4)
+    opts = dict(copartition=True)
+    (one, one_rep), _ = QueryService(tables, sweep_mode="vmap").sweep(
+        fam, batch, with_report=True)
+    explain = compile_plan(fam, mesh, **opts).explain(tables)
+    ops.reset_launches()
+    ((got, rep), _), ms = timed(lambda: QueryService(
+        tables, mesh, sweep_mode="vmap", **opts).sweep(
+            fam, batch, with_report=True))
+    launches = ops.launches()
+    out = dict(explain=explain, bit_equal=bit_equal(got, one), ms=ms,
+               launches=launches, q3=(report_host(rep),
+                                      report_host(one_rep)))
+    del one, got
+    lim = dict(qty_lim=torch.floor(torch.linspace(5.0, 45.0, n,
+                                                  device=dev)))
+    kfam = keyed_join_family()
+    kopts = dict(copartition=True, shuffle_slack=SWEEP_MESH_SLACK)
+    (kgot, krep), _ = QueryService(tables, mesh, sweep_mode="vmap",
+                                   **kopts).sweep(kfam, lim,
+                                                  with_report=True)
+    (kscan, ksrep), _ = QueryService(tables, mesh, **kopts).sweep(
+        kfam, lim, with_report=True)
+    out.update(keyed_explain=compile_plan(kfam, mesh, **kopts).explain(
+        tables), keyed=(to_host(kgot), report_host(krep), to_host(kscan),
+                        report_host(ksrep)),
+        seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def sweep_mesh_phase(card: str, ranks: list) -> dict:
+    """Phase 16 (c) (module docstring): the checks of what
+    :func:`sweep_mesh_rank` returned on phase 14's two ranks."""
+    import torch
+    launches: dict = {}
+    for i, r in enumerate(ranks):
+        check(all(node in r["explain"] for node in COPART_NODES),
+              f"phase 16 (c) rank {i}: Q3 did not lower to {COPART_NODES}:"
+              f"\n{r['explain']}")
+        check(r["bit_equal"], f"phase 16 (c) rank {i}: the Q3 vmap sweep "
+              "through the co-partitioned pipeline is not bit-equal to one "
+              "device's")
+        rep, one_rep = r["q3"]
+        q3_over = sum(int(v.sum()) for v in
+                      rep["exchange_overflow"].values())
+        check(q3_over == 0 and len(rep["exchange_overflow"]) == 2,
+              f"phase 16 (c) rank {i} q3: exchange legs "
+              f"{rep['exchange_overflow']}")
+        reports_equal({f: rep[f] for f in ("group_overflow", "state_nan")},
+                      {f: one_rep[f] for f in ("group_overflow",
+                                               "state_nan")},
+                      f"phase 16 (c) rank {i} q3")
+        check("CoPartitionedJoin" in r["keyed_explain"],
+              f"phase 16 (c) rank {i}: the keyed family did not lower to "
+              f"the co-partitioned join:\n{r['keyed_explain']}")
+        kgot, krep, kscan, ksrep = r["keyed"]
+        keyed_totals = reports_equal(krep, ksrep,
+                                     f"phase 16 (c) rank {i} keyed join")
+        over = sum(v for v in krep["exchange_overflow"].values())
+        check(bool((over > 0).any()) and not bool((over > 0).all()),
+              f"phase 16 (c) rank {i}: overflow at points {over.tolist()}: "
+              "the case needs some points over and some under")
+        poisoned = torch.isnan(kgot["sum"][0]).any(1)
+        check(torch.equal(poisoned, over > 0), f"phase 16 (c) rank {i}: "
+              f"NaN-poisoned points {poisoned.tolist()} against the "
+              f"overflowing {over.tolist()}")
+        sweep_errors(kgot, kscan, f"rank {i} keyed join",
+                     phase="phase 16 (c)")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report = dict(ms=max(r["ms"] for r in ranks),
+                  points=SWEEP_MESH_POINTS, overflow=over.tolist(),
+                  keyed_totals=keyed_totals, launches=launches,
+                  seconds=max(r["seconds"] for r in ranks))
+    print(f"phase 16 (c) Q3 family at SF0.1, {SWEEP_MESH_POINTS} points, "
+          f"two gloo ranks on one card through {' + '.join(COPART_NODES)}: "
+          f"vmap {report['ms']:.1f} ms (slowest rank) bit-equal to one "
+          f"device's vmap sweep, no exchange overflow, its pass counts "
+          f"equal one device's; keyed join at shuffle_slack "
+          f"{SWEEP_MESH_SLACK}: probe overflow by point {over.tolist()}, "
+          f"each point's counts equal the scan sweep's, exactly those "
+          f"points NaN-poisoned; launches (both ranks) {launches}; "
+          f"{report['seconds']:.1f} s in phase 14's ranks [{card}]")
     return report
 
 
@@ -3595,8 +3916,9 @@ def train_phase(card: str, out_dir, dev: str = "cuda") -> dict:
 #: ``layers`` layers, bf16, ``batch`` x ``seq`` tokens, ``steps`` steps
 #: of ``make_train_step`` (AdamW, remat) on a ``shape`` mesh of gloo ranks
 #: sharing the card; (d) saves after step ``save_after`` and restores
-#: under ``restore_shape``.
-LM_MESH = dict(arch="yi_6b", moe="olmoe_1b_7b", layers=2, batch=4, seq=512,
+#: under ``restore_shape``.  One layer deep since phase 16 joined the run
+#: (two before), to keep the run inside its time limit.
+LM_MESH = dict(arch="yi_6b", moe="olmoe_1b_7b", layers=1, batch=4, seq=512,
                steps=3, shape=(2, 2), restore_shape=(4, 1), save_after=2,
                wide_shape=(1, 4), prompt=5, decode=3)
 #: (f): the sharded decode's logits against one rank's (float32 weights;
@@ -3812,7 +4134,7 @@ def mesh_train_rank(out_dir, dev) -> dict:
 
 
 def mesh_decode(rules, dev) -> dict:
-    """(f) yi_6b's 2 layers at full width with float32 weights (seed 0):
+    """(f) yi_6b's layers at full width with float32 weights (seed 0):
     ``decode`` steps after a ``prompt`` fed token by token, the sharded
     model (a cache of blocks: the KV heads over the model axis) against
     the same model on this rank; max |logits - one rank's| over the steps,
@@ -4317,10 +4639,17 @@ def pgf_run(mesh) -> dict:
 
 
 def pgf_mesh_rank(dev) -> dict:
+    """One of phase 14's two gloo ranks; phase 16 (c) runs in the same
+    ranks after it (one spawn for both)."""
+    import torch
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(PGF_MESH["shapes"][1], ("data", "model"),
                      backend="gloo", device=dev)
-    return pgf_run(mesh)
+    out = pgf_run(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sweep"] = sweep_mesh_rank(dev)
+    return out
 
 
 def pgf_mesh_phase(card: str, runs: "DryRuns", out_dir) -> dict:
@@ -4351,6 +4680,7 @@ def pgf_mesh_phase(card: str, runs: "DryRuns", out_dir) -> dict:
     ranks = run_ranks(pgf_mesh_rank, 2, backend="gloo", device="cuda",
                       store_dir=rstore, args=("cuda",), timeout=600)
     shutil.rmtree(rstore, ignore_errors=True)
+    sweeps = [r.pop("sweep") for r in ranks]
     tags = ["x".join(map(str, s)) for s in PGF_MESH["shapes"]]
     want = [{k: v for k, v in dry[f"pgf_tpch/query@{t}"]["launches"].items()
              if v} for t in tags]
@@ -4379,7 +4709,8 @@ def pgf_mesh_phase(card: str, runs: "DryRuns", out_dir) -> dict:
                   launches_one=one["launches"],
                   launches_mesh=[r["launches"] for r in ranks],
                   cf_err=err, launches=launches,
-                  seconds=time.perf_counter() - t_phase)
+                  seconds=time.perf_counter() - t_phase
+                  - max(r["seconds"] for r in sweeps))
     print(f"phase 14 pgf_tpch/query, {PGF_MESH['n_tuples']} tuples, 4096 "
           f"groups, 2^16 CF frequencies: (1, 1) NCCL {one['ms']:.1f} ms "
           f"(counted run {one['counted_ms']:.1f}), launches "
@@ -4389,6 +4720,7 @@ def pgf_mesh_phase(card: str, runs: "DryRuns", out_dir) -> dict:
           f"launches a rank {ranks[0]['launches']} (= dry-run); CF max "
           f"|(1, 2) - (1, 1)| {err:.3e} (bound {CF_BOUND}); "
           f"{report['seconds']:.1f} s [{card}]")
+    report["sweep_mesh"] = sweep_mesh_phase(card, sweeps)
     return report
 
 
@@ -4418,7 +4750,7 @@ def main() -> int:
 
 
 def run(out_dir, dryruns) -> int:
-    """Phases 1-15 (module docstring)."""
+    """Phases 1-16 (module docstring)."""
     import numpy as np
     import torch
     from repro_torch.db import tpch
@@ -4535,6 +4867,7 @@ def run(out_dir, dryruns) -> int:
         serving=lambda db, mesh: serving_phases(db, mesh, mesh_ref))
     report["serving"] = report["mesh"].pop("serving")
     report["vmap"] = report["serving"].pop("vmap")
+    report["sweep_report"] = report["serving"].pop("sweep_report")
     torch.cuda.empty_cache()
 
     report["lm"] = lm_phase(card)
@@ -4550,11 +4883,13 @@ def run(out_dir, dryruns) -> int:
     torch.cuda.empty_cache()
 
     report["pgf_mesh"] = pgf_mesh_phase(card, dryruns, out_dir)
+    report["sweep_mesh"] = report["pgf_mesh"].pop("sweep_mesh")
 
     # launches: the runs of the TPC-H path, the value-layer path, the
     # streamed path, the mesh path (every rank), the serving path, the
     # training path, the LM mesh (every rank), phase 13's card cells,
-    # phase 14's pgf runs (every rank) and phase 15's batched sweeps.
+    # phase 14's pgf runs (every rank), phase 15's batched sweeps and
+    # phase 16's (the SF1 Q3 family's, and every rank's of (c)).
     value_launches = report["value_layer"]["launches"]
     stream_launches = report["streamed_sf1"]["launches"]
     mesh_launches = report["mesh"]["launches"]
@@ -4563,6 +4898,9 @@ def run(out_dir, dryruns) -> int:
     lm_mesh_launches = report["mesh_train"]["launches"]
     pgf_mesh_launches = report["pgf_mesh"]["launches"]
     vmap_launches = report["vmap"]["launches"]
+    sweep16_launches = {
+        k: report["sweep_report"]["launches"][k]
+        + report["sweep_mesh"]["launches"].get(k, 0) for k in launches}
     cell_launches = {k: sum(c["launches"].get(k, 0) for c in
                             report["dryrun"]["b"].values())
                      for k in launches}
@@ -4577,7 +4915,7 @@ def run(out_dir, dryruns) -> int:
                             + serving_launches[name] + train_launches[name]
                             + lm_mesh_launches[name] + cell_launches[name]
                             + pgf_mesh_launches.get(name, 0)
-                            + vmap_launches[name],
+                            + vmap_launches[name] + sweep16_launches[name],
                             **r))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -59,6 +59,8 @@ from ..core import uda
 from ..testing import faults
 from . import operators as ops
 from . import physical as phys
+from . import sweep
+from .sweep import POINT
 from .table import Table
 
 #: Counts of the collective exchanges and merges of this process, keyed by
@@ -275,11 +277,15 @@ def gather_table(t: Table, ax) -> Table:
 
 
 def shuffle_by_key(keys, cols: dict, ax, *, n_shards: int, capacity: int,
-                   valid=None):
+                   valid=None, points=None, n_points: int = 1):
     """Static-shape shuffle exchange: row i goes to rank ``keys[i] %
     n_shards`` through ``n_shards`` send buckets of ``capacity`` rows
     (``operators.bucket_slots``; ok-rows past a bucket's capacity are
-    dropped but counted) and one all_to_all per column.
+    dropped but counted) and one all_to_all per column.  With ``points``
+    (a batched sweep's point of each row, of ``n_points``) every owner's
+    bucket is ``n_points`` buckets of ``capacity`` rows, one a point, so
+    each point's rows are held to one point's capacity; the overflow is
+    then each point's (n_points,) count.
 
     Returns ``(recv, recv_mask, slot, sent, overflow)``: ``recv`` {name:
     (n_shards * capacity,) tensor} (bucket j holds sender j's rows for
@@ -292,8 +298,14 @@ def shuffle_by_key(keys, cols: dict, ax, *, n_shards: int, capacity: int,
     ok = torch.ones(keys.shape, dtype=torch.bool, device=keys.device) \
         if valid is None else valid
     dest = torch.remainder(keys.to(torch.int32), n_shards)
-    slot, sent, overflow = ops.bucket_slots(dest, ok, n_shards, capacity)
-    size = n_shards * capacity
+    n_points = n_points if points is not None else 1
+    if points is not None:
+        dest = dest.to(torch.int64) * n_points + points
+    slot, sent, overflow = ops.bucket_slots(dest, ok, n_shards * n_points,
+                                            capacity)
+    if points is not None:
+        overflow = _point_counts(ok & ~sent, points, n_points)
+    size = n_shards * n_points * capacity
     inv = ops.bucket_fill_index(slot, size)
     send = ops.scatter_to_buckets(cols, slot, size, inv=inv)
     mask = inv < keys.shape[0]          # slot filled by a sent row
@@ -324,41 +336,65 @@ def _check_exchange_cols(what: str, cols) -> None:
                          f"for exchange fields): {bad}")
 
 
-def _send_demand(keys, valid, n_shards: int):
+def _point_counts(flags, points, n_points: int):
+    """Each point's (n_points,) count of the rows where ``flags`` holds."""
+    return torch.zeros((n_points,), dtype=torch.int64,
+                       device=flags.device).scatter_add_(
+        0, points, flags.to(torch.int64))
+
+
+def _points(t: Table):
+    """A swept relation's point column (None unswept)."""
+    return t.columns.get(POINT)
+
+
+def _send_demand(keys, valid, n_shards: int, points=None,
+                 n_points: int = 1):
     """Peak per-owner send demand of this rank: the most valid rows it
-    routes to one owner.  Its max over ranks is the bucket capacity that
-    makes the exchange overflow-free (the retry controller's target,
-    ``ExecutionReport.exchange_demand``)."""
+    routes to one owner (with ``points``, each point's).  Its max over
+    ranks is the bucket capacity that makes the exchange overflow-free
+    (the retry controller's target, ``ExecutionReport.exchange_demand``)."""
     dest = torch.remainder(keys.to(torch.int32), n_shards).to(torch.int64)
-    cnt = torch.zeros((n_shards,), dtype=torch.int64, device=keys.device)
+    n_points = n_points if points is not None else 1
+    if points is not None:
+        dest = dest * n_points + points
+    cnt = torch.zeros((n_shards * n_points,), dtype=torch.int64,
+                      device=keys.device)
     cnt.scatter_add_(0, dest, valid.to(torch.int64))
-    return torch.max(cnt)
+    peak = cnt.view(n_shards, n_points).amax(0)
+    return peak if points is not None else peak[0]
 
 
 def _record_leg(report, label: str, leg: str, ax, overflow, keys, valid,
-                n_shards: int, capacity: int) -> None:
+                n_shards: int, capacity: int, points=None,
+                n_points: int = 1) -> None:
     """File one exchange leg into the ReportBuilder (two more collectives
     per leg, so only when a report was asked for)."""
     if report is None:
         return
     report.exchange_leg(label, leg, psum(overflow.to(torch.int64), ax),
-                        pmax(_send_demand(keys, valid, n_shards), ax),
+                        pmax(_send_demand(keys, valid, n_shards, points,
+                                          n_points), ax),
                         capacity)
 
 
 def _exchange_build(right: Table, right_key: str, right_cols, ax,
-                    n_shards: int, build_bucket: int):
+                    n_shards: int, build_bucket: int, n_points: int = 1):
     """Shuffle the build side's valid rows to their ``right_key %
-    n_shards`` owner.  Returns (the owner's bucket Table, local
-    overflow)."""
+    n_shards`` owner (a swept build side's with their point, each point's
+    rows held to one point's bucket).  Returns (the owner's bucket Table,
+    local overflow)."""
+    points = _points(right)
     bcols = {_KEY: right[right_key].to(torch.int32), _PROB: right.prob}
     for c in right_cols:
         bcols[c] = right[c]
+    if points is not None:
+        bcols[POINT] = points
     brecv, bmask, _, _, b_over = shuffle_by_key(
         bcols[_KEY], bcols, ax, n_shards=n_shards, capacity=build_bucket,
-        valid=right.valid)
-    return Table({right_key: brecv[_KEY], **{c: brecv[c]
-                                             for c in right_cols}},
+        valid=right.valid, points=points, n_points=n_points)
+    carried = list(right_cols) + ([POINT] if points is not None else [])
+    return Table({right_key: brecv[_KEY], **{c: brecv[c] for c in carried}},
                  brecv[_PROB], bmask, phys.HashPartitioned(right_key)), b_over
 
 
@@ -371,16 +407,30 @@ def _chunk_place(capacity: int, ax, chunk_size: int, num_chunks: int):
     return cid.to(torch.int32), (row - cid * chunk_size).to(torch.int32)
 
 
-def _poison(prob, over):
+def _poison(prob, over, points=None):
     """NaN the probabilities when any exchange leg overflowed (``over`` is
-    the psum'd drop count: every rank agrees)."""
+    the psum'd drop count: every rank agrees); a batched sweep's per-point
+    ``over`` poisons the rows of the points that overflowed."""
+    if over.dim():
+        over = over[points]
     return torch.where(over > 0, torch.full_like(prob, float("nan")), prob)
+
+
+def _match(probe: Table, build: Table, left_key: str, right_key: str,
+           right_cols, n_points: int) -> Table:
+    """The owner's many-to-one match: by key, or by (key, point) when the
+    build side is swept (the probe side then is too)."""
+    if _points(build) is not None:
+        return sweep.fk_join(probe, build, left_key, right_key, right_cols,
+                             n_points)
+    return ops.fk_join(probe, build, left_key, right_key, right_cols)
 
 
 def shuffle_fk_join(left: Table, right: Table, left_key: str,
                     right_key: str, right_cols: Sequence[str], ax, *,
                     n_shards: int, build_bucket: int, probe_bucket: int,
-                    report=None, label: str = "") -> Table:
+                    report=None, label: str = "",
+                    n_points: int = 1) -> Table:
     """The ShuffleJoin executor: build rows to their key's owner, probe
     keys to the same owners as requests (p = 1), one local
     ``operators.fk_join`` there, and the responses back into the probe
@@ -388,49 +438,63 @@ def shuffle_fk_join(left: Table, right: Table, left_key: str,
     the gathered join bit for bit (same matches, same products, zeros on a
     miss).  Overflow on either exchange NaN-poisons the output
     probabilities (every rank agrees through one psum); the
-    ``ExecutionReport`` records it per leg."""
+    ``ExecutionReport`` records it per leg.  Swept sides (a batched sweep
+    of ``n_points``) exchange each point's rows through its own buckets
+    and match by (key, point)."""
     right_cols = list(right_cols)
     hit = "\x00hit"
     _check_exchange_cols("shuffle_fk_join right_cols", right_cols)
     build, b_over = _exchange_build(right, right_key, right_cols, ax,
-                                    n_shards, build_bucket)
+                                    n_shards, build_bucket, n_points)
     lkey = left[left_key].to(torch.int32)
+    points = _points(left)
+    req_cols = {_KEY: lkey} if points is None else {_KEY: lkey,
+                                                    POINT: points}
     preq, pmask, slot, sent, p_over = shuffle_by_key(
-        lkey, {_KEY: lkey}, ax, n_shards=n_shards, capacity=probe_bucket,
-        valid=left.valid)
-    req = Table({left_key: preq[_KEY]},
+        lkey, req_cols, ax, n_shards=n_shards, capacity=probe_bucket,
+        valid=left.valid, points=points, n_points=n_points)
+    req = Table({left_key: preq[_KEY],
+                 **({} if points is None else {POINT: preq[POINT]})},
                 torch.ones(pmask.shape, dtype=left.prob.dtype,
                            device=pmask.device), pmask)
-    matched = ops.fk_join(req, build, left_key, right_key, right_cols)
+    matched = _match(req, build, left_key, right_key, right_cols, n_points)
     resp = {_PROB: matched.prob, hit: matched.valid}
     for c in right_cols:
         resp[c] = matched[c]
     got = ops.take_from_buckets(shuffle_back(resp, ax), slot, sent)
     _record_leg(report, label, "build", ax, b_over, right[right_key],
-                right.valid, n_shards, build_bucket)
+                right.valid, n_shards, build_bucket, _points(right),
+                n_points)
     _record_leg(report, label, "probe", ax, p_over, lkey, left.valid,
-                n_shards, probe_bucket)
+                n_shards, probe_bucket, points, n_points)
     over = psum((b_over + p_over).to(torch.int64), ax)
     cols = dict(left.columns)
     for c in right_cols:
         cols[c] = got[c]
-    return Table(cols, _poison(left.prob * got[_PROB], over),
+    return Table(cols, _poison(left.prob * got[_PROB], over, points),
                  left.valid & got[hit], left.part)
 
 
 def _ship_rows(t: Table, key: str, carry_cols, ax, *, n_shards: int,
-               bucket: int, chunk_size: int, num_chunks: int):
+               bucket: int, chunk_size: int, num_chunks: int,
+               n_points: int = 1):
     """Ship a row-partitioned relation's valid rows to their ``key %
     n_shards`` owner with (key, p, canonical chunk id, row offset,
-    carry_cols).  Received rows keep the global row order restricted to
-    the owner (sender-major, in-sender order)."""
+    carry_cols, and a swept row's point, each point held to its own
+    bucket).  Received rows keep the global row order restricted to the
+    owner (sender-major, in-sender order; point-major within a sender when
+    swept)."""
     cid, off = _chunk_place(t.capacity, ax, chunk_size, num_chunks)
     cols = {_KEY: t[key], _PROB: t.prob, phys.CHUNK_COL: cid, ROW_COL: off}
     for c in carry_cols:
         cols[c] = t[c]
+    points = _points(t)
+    if points is not None:
+        cols[POINT] = points
     kcol = t[key].to(torch.int32)        # routing only; column ships as-is
     recv, mask, _, _, over = shuffle_by_key(
-        kcol, cols, ax, n_shards=n_shards, capacity=bucket, valid=t.valid)
+        kcol, cols, ax, n_shards=n_shards, capacity=bucket, valid=t.valid,
+        points=points, n_points=n_points)
     return recv, mask, over, kcol
 
 
@@ -439,55 +503,65 @@ def copartitioned_fk_join(left: Table, right: Table, left_key: str,
                           carry_cols: Sequence[str], ax, *, n_shards: int,
                           build_bucket: int, probe_bucket: int,
                           chunk_size: int, num_chunks: int, report=None,
-                          label: str = "") -> Table:
+                          label: str = "", n_points: int = 1) -> Table:
     """The CoPartitionedJoin executor: the two exchanges of
     :func:`shuffle_fk_join`, but probe rows ship (key, p, chunk id, row
     offset, ``carry_cols``) and matched rows STAY at their ``left_key %
     n_shards`` owner (no ``shuffle_back``), so a GROUP BY on the join key
     aggregates in place.  The output is ``HashPartitioned(left_key)`` in
     the exchange's bucket layout; overflow NaN-poisons it as in
-    :func:`shuffle_fk_join`."""
+    :func:`shuffle_fk_join`.  A swept probe side (a batched sweep) ships
+    its rows at their canonical positions in the swept relation
+    (``chunk_size`` is the swept chunk's) with their point."""
     right_cols, carry_cols = list(right_cols), list(carry_cols)
     _check_exchange_cols("copartitioned_fk_join columns",
                          right_cols + carry_cols)
     build, b_over = _exchange_build(right, right_key, right_cols, ax,
-                                    n_shards, build_bucket)
+                                    n_shards, build_bucket, n_points)
     precv, pmask, p_over, lkey = _ship_rows(
         left, left_key, carry_cols, ax, n_shards=n_shards,
-        bucket=probe_bucket, chunk_size=chunk_size, num_chunks=num_chunks)
+        bucket=probe_bucket, chunk_size=chunk_size, num_chunks=num_chunks,
+        n_points=n_points)
+    points = _points(left)
+    shipped = list(carry_cols) + ([POINT] if points is not None else [])
     probe = Table({left_key: precv[_KEY],
                    **{c: precv[c] for c in (phys.CHUNK_COL, ROW_COL)},
-                   **{c: precv[c] for c in carry_cols}},
+                   **{c: precv[c] for c in shipped}},
                   precv[_PROB], pmask, phys.HashPartitioned(left_key))
-    out = ops.fk_join(probe, build, left_key, right_key, right_cols)
+    out = _match(probe, build, left_key, right_key, right_cols, n_points)
     _record_leg(report, label, "build", ax, b_over, right[right_key],
-                right.valid, n_shards, build_bucket)
+                right.valid, n_shards, build_bucket, _points(right),
+                n_points)
     _record_leg(report, label, "probe", ax, p_over, lkey, left.valid,
-                n_shards, probe_bucket)
+                n_shards, probe_bucket, points, n_points)
     over = psum((b_over + p_over).to(torch.int64), ax)
-    return out.with_prob(_poison(out.prob, over))
+    return out.with_prob(_poison(out.prob, over, _points(out)))
 
 
 def repartition_by_key(t: Table, key: str, carry_cols: Sequence[str], ax,
                        *, n_shards: int, bucket: int, chunk_size: int,
-                       num_chunks: int, report=None,
-                       label: str = "") -> Table:
+                       num_chunks: int, report=None, label: str = "",
+                       n_points: int = 1) -> Table:
     """The Repartition executor: hash-exchange a row-partitioned relation
     to its ``key % n_shards`` owners (the no-join feed of a
     PartitionedAgg), with the layout and overflow contract of
-    :func:`copartitioned_fk_join`."""
+    :func:`copartitioned_fk_join` (a swept relation's too)."""
     carry_cols = list(carry_cols)
     _check_exchange_cols("repartition_by_key carry_cols", carry_cols)
     recv, mask, over, kcol = _ship_rows(
         t, key, carry_cols, ax, n_shards=n_shards, bucket=bucket,
-        chunk_size=chunk_size, num_chunks=num_chunks)
+        chunk_size=chunk_size, num_chunks=num_chunks, n_points=n_points)
+    points = _points(t)
     _record_leg(report, label, "repart", ax, over, kcol, t.valid, n_shards,
-                bucket)
+                bucket, points, n_points)
     over = psum(over.to(torch.int64), ax)
+    if points is not None:
+        carry_cols.append(POINT)
     return Table({key: recv[_KEY],
                   **{c: recv[c] for c in (phys.CHUNK_COL, ROW_COL)},
                   **{c: recv[c] for c in carry_cols}},
-                 _poison(recv[_PROB], over), mask, phys.HashPartitioned(key))
+                 _poison(recv[_PROB], over, recv.get(POINT)), mask,
+                 phys.HashPartitioned(key))
 
 
 def group_ids_sharded(table: Table, keys: Sequence[str], max_groups: int,

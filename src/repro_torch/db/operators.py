@@ -24,7 +24,6 @@ from ..core import uda
 from .table import Table
 
 BIG = torch.iinfo(torch.int64).max
-_INT32_MAX = torch.iinfo(torch.int32).max
 
 
 # --------------------------------------------------------------- grouping
@@ -151,12 +150,21 @@ def fk_join(left: Table, right: Table, left_key: str, right_key: str,
     of the int32 build keys plus searchsorted.  Dead output rows (a miss
     or an invalid left row) carry p = 0 and zero-filled right columns."""
     check_unique_fk_keys(right, right_key)
-    rk = torch.where(right.valid, right[right_key].to(torch.int32),
-                     torch.full((right.capacity,), _INT32_MAX,
-                                dtype=torch.int32, device=right.device))
+    return join_on_codes(left, right, left[left_key].to(torch.int32),
+                         right[right_key].to(torch.int32), right_cols,
+                         suffix)
+
+
+def join_on_codes(left: Table, right: Table, lk, rk,
+                  right_cols: Sequence[str], suffix: str = "") -> Table:
+    """:func:`fk_join` on given integer codes of one dtype (``rk`` unique
+    among the valid build rows): the key columns cast to int32, or a
+    batched sweep's (key, point) codes."""
+    rk = torch.where(right.valid, rk,
+                     torch.full_like(rk, torch.iinfo(rk.dtype).max))
     order = torch.argsort(rk, stable=True)
     rk_sorted = rk[order]
-    lk = left[left_key].to(torch.int32).contiguous()
+    lk = lk.contiguous()
     pos = torch.clamp(torch.searchsorted(rk_sorted, lk), 0,
                       right.capacity - 1)
     src = order[pos]

@@ -516,19 +516,27 @@ def _lost_group_count(code_live, big, merged, ids):
 
 
 def _finalize_pass(node, pa, udas: dict, states: dict, gvalid, key_columns,
-                   rb=None, label: str = "", params=None):
+                   rb=None, label: str = "", params=None,
+                   n_points: int | None = None):
     """The epilogue of one aggregation pass, selected by ``node.kind``;
     ``key_columns(cols)`` returns the per-group representatives.  With a
     :class:`ReportBuilder` the pass also files its diagnostics: the NaN
     count of every folded UDA state and the per-group §V-B.2 truncation
-    mass of each MIN/MAX aggregate."""
+    mass of each MIN/MAX aggregate (a batched sweep's swept pass, of
+    ``n_points``, files them point by point)."""
     if rb is not None:
         for name, st in states.items():
-            rb.state_nan(f"{label}.{name}", nan_count(st))
+            rb.state_nan(f"{label}.{name}", nan_count(st) if n_points is None
+                         else sweep.nan_count(st, n_points))
         for name, _value, agg, _method in pa.specs:
             if agg in ("MIN", "MAX"):
-                rb.tail(f"{label}.{name}",
-                        udas[name].tail_mass(states[name]))
+                tail = udas[name].tail_mass(states[name])
+                if n_points is None:
+                    rb.tail(f"{label}.{name}", tail)
+                else:
+                    rb.tail(f"{label}.{name}",
+                            sweep.split_points(tail, n_points),
+                            per_point=True)
     conf = udas["confidence"].finalize(states["confidence"])
     if node.kind == "project":
         return Table(key_columns(list(pa.keys)), conf, gvalid, node.part)
@@ -866,17 +874,28 @@ def compile_plan(root: Node, mesh=None, *,
                 return dist.group_ids_sharded(t, list(keys), mg, ax)
             return ops.group_ids(t, list(keys), mg)
 
-        def unswept(t: Table, what: str) -> Table:
-            """``t``, refused when swept: ``what`` feeds a PartitionedAgg,
-            whose owners place rows by canonical chunk position, which
-            the points of a swept row share."""
-            if points is not None and sweep.is_swept(t):
-                raise ValueError(
-                    f"sweep_mode='vmap' cannot batch a {what} over swept "
-                    "rows (the co-partitioned pipeline or "
-                    "agg_shuffle_budget): lower the family without "
-                    "copartition and agg_shuffle_budget")
-            return t
+        def width(t: Table) -> int:
+            """Rows of ``t`` a canonical row stands for: a swept
+            relation's N points, else 1."""
+            return points.n if points is not None and sweep.is_swept(t) \
+                else 1
+
+        #: the points an exchange holds to one point's buckets each
+        n_points = points.n if points is not None else 1
+
+        def probe_side(lt: Table, rt: Table) -> Table:
+            """A join's probe side, joined with the points when only the
+            build side is swept (pair (r, j) at row r * N + j)."""
+            if width(rt) > 1 and width(lt) == 1:
+                return sweep.point_join(lt, points, None)
+            return lt
+
+        def fk_join(lt: Table, rt: Table, node) -> Table:
+            if width(rt) > 1:
+                return sweep.fk_join(lt, rt, node.left_key, node.right_key,
+                                     node.right_cols, points.n)
+            return ops.fk_join(lt, rt, node.left_key, node.right_key,
+                               list(node.right_cols))
 
         def rel_key_columns(t: Table, keys, ids, mg):
             if sharded(t) or hash_partitioned(t):
@@ -891,11 +910,13 @@ def compile_plan(root: Node, mesh=None, *,
             Finalize selected by ``kind``."""
             pa = node.child
             t = run(pa.child)
-            swept = points is not None and sweep.is_swept(t)
+            swept = width(t) > 1
             if swept:       # (group, point) groups, g * N + j
-                ids, gvalid = sweep.group_ids(
+                ids, gvalid, lost = sweep.group_ids(
                     t, pa.keys, pa.max_groups, points.n,
-                    ax if sharded(t) else None)
+                    ax if sharded(t) or hash_partitioned(t) else None,
+                    laid_out=not hash_partitioned(t),
+                    count_lost=rb is not None)
                 pa = dataclasses.replace(
                     pa, max_groups=pa.max_groups * points.n)
             mg = pa.max_groups
@@ -903,8 +924,9 @@ def compile_plan(root: Node, mesh=None, *,
                 ids, merged, gvalid = rel_group_ids(t, pa.keys, mg)
             label = rb.begin_agg(node.kind) if rb is not None else ""
             if rb is not None:
-                code_live, big = ops.live_key_codes(t, list(pa.keys))
-                lost = _lost_group_count(code_live, big, merged, ids)
+                if not swept:
+                    code_live, big = ops.live_key_codes(t, list(pa.keys))
+                    lost = _lost_group_count(code_live, big, merged, ids)
                 if sharded(t) or hash_partitioned(t):
                     # each rank counted its own rows (a replicated input
                     # counts every row on every rank: no sum)
@@ -919,8 +941,8 @@ def compile_plan(root: Node, mesh=None, *,
                 probs, values, acc_ids = dist.chunk_columns(
                     probs, values, ids, t[phys.CHUNK_COL], t[dist.ROW_COL],
                     t.valid,
-                    chunk_size=_canonical_rows(pa.child, caps) // chunks,
-                    num_chunks=chunks, max_groups=mg)
+                    chunk_size=_canonical_rows(pa.child, caps) * width(t)
+                    // chunks, num_chunks=chunks, max_groups=mg)
             elif sharded(t):
                 nslots, real = local_chunks, real_local
             exact_names, slabs = _pass_slabs(pa, cf_budget_elems)
@@ -974,7 +996,8 @@ def compile_plan(root: Node, mesh=None, *,
                 fin_params = points.per_group(gvalid.shape[0] // points.n)
             out = _finalize_pass(node, pa, udas, states, gvalid,
                                  key_columns, rb=rb, label=label,
-                                 params=fin_params)
+                                 params=fin_params,
+                                 n_points=points.n if swept else None)
             return sweep.mark(out, points.n) if swept else out
 
         def run(node: phys.PhysNode):
@@ -1007,44 +1030,47 @@ def compile_plan(root: Node, mesh=None, *,
                 return t.with_column(node.name, col)
             if isinstance(node, phys.GatherJoin):
                 lt, rt = run(node.left), run(node.right)
+                lt = probe_side(lt, rt)
                 if sharded(rt):
                     # the small build side, gathered: key + carried cols
+                    # (+ a swept side's points)
+                    keep = (node.right_key,) + tuple(node.right_cols)
+                    if width(rt) > 1:
+                        keep += (sweep.POINT,)
                     rt = dist.gather_table(rt.select_columns(
-                        dict.fromkeys((node.right_key,)
-                                      + tuple(node.right_cols))), ax)
-                return ops.fk_join(lt, rt, node.left_key, node.right_key,
-                                   list(node.right_cols))
+                        dict.fromkeys(keep)), ax)
+                return fk_join(lt, rt, node)
             if isinstance(node, phys.ShuffleJoin):
                 lt, rt = run(node.left), run(node.right)
+                lt = probe_side(lt, rt)
                 lbl = rb.begin_exchange("shuffle_join") if rb else ""
-                # swept probe rows: one point's bucket for every point
-                probe = node.probe_bucket * (
-                    points.n if points is not None and sweep.is_swept(lt)
-                    else 1)
                 return dist.shuffle_fk_join(
                     lt, rt, node.left_key, node.right_key,
                     list(node.right_cols), ax, n_shards=shards,
                     build_bucket=node.build_bucket,
-                    probe_bucket=probe, report=rb, label=lbl)
+                    probe_bucket=node.probe_bucket, report=rb, label=lbl,
+                    n_points=n_points)
             if isinstance(node, phys.CoPartitionedJoin):
-                lt = unswept(run(node.left), "CoPartitionedJoin")
-                rt = run(node.right)
+                lt, rt = run(node.left), run(node.right)
+                lt = probe_side(lt, rt)
                 lbl = rb.begin_exchange("copart_join") if rb else ""
                 return dist.copartitioned_fk_join(
                     lt, rt, node.left_key, node.right_key,
                     list(node.right_cols), list(node.carry_cols), ax,
                     n_shards=shards, build_bucket=node.build_bucket,
                     probe_bucket=node.probe_bucket,
-                    chunk_size=_canonical_rows(node.left, caps) // chunks,
-                    num_chunks=chunks, report=rb, label=lbl)
+                    chunk_size=_canonical_rows(node.left, caps) * width(lt)
+                    // chunks, num_chunks=chunks, report=rb, label=lbl,
+                    n_points=n_points)
             if isinstance(node, phys.Repartition):
-                t = unswept(run(node.child), "Repartition")
+                t = run(node.child)
                 lbl = rb.begin_exchange("repartition") if rb else ""
                 return dist.repartition_by_key(
                     t, node.key, list(node.carry_cols), ax,
                     n_shards=shards, bucket=node.bucket,
-                    chunk_size=_canonical_rows(node.child, caps) // chunks,
-                    num_chunks=chunks, report=rb, label=lbl)
+                    chunk_size=_canonical_rows(node.child, caps) * width(t)
+                    // chunks, num_chunks=chunks, report=rb, label=lbl,
+                    n_points=n_points)
             if isinstance(node, phys.MergeAgg):
                 return run_agg(node)
             raise TypeError(node)
@@ -1448,16 +1474,20 @@ def compile_plan(root: Node, mesh=None, *,
         def sweep_runner(batch: dict):
             """Every point of ``batch`` (name -> length-N tensor) in one
             batched pass (:mod:`repro_torch.db.sweep`); every leaf of the
-            result gains a leading N axis.  Resident plans without a
-            report only; on a mesh, the same bits as ``mesh=None``."""
-            if streamed or with_report:
-                raise ValueError(
-                    "a batched sweep runs a resident plan without a "
-                    "report: drop device_row_budget and with_report")
+            result gains a leading N axis, and so does every value of the
+            report (``with_report``: a stacked ExecutionReport, point j's
+            counts at index j).  Resident plans only; on a mesh, the same
+            bits as ``mesh=None``."""
+            if streamed:
+                raise NotImplementedError(
+                    "a batched sweep runs a resident plan: drop "
+                    "device_row_budget")
             check_params(batch)
             points = sweep.Points(batch)
-            return sweep.unstack(interpret(resident, proot, caps, None,
-                                           points), points.n)
+            rb = ReportBuilder(points.n) if with_report else None
+            out = sweep.unstack(interpret(resident, proot, caps, rb,
+                                          points), points.n)
+            return (out, rb.build()) if with_report else out
 
         runner.sweep = sweep_runner
         return runner

@@ -30,6 +30,13 @@ The values are tensors on the run's device (``waves`` holds host ints),
 so collecting them adds no host sync to a run; :meth:`ExecutionReport.
 issues` and the other readers copy every value to the host in one
 transfer.
+
+A parameter sweep with ``with_report=True`` returns one *stacked*
+report (``points`` = N): every value gains a leading N axis, point j's
+at index j (counts shaped (N,), ``tail_mass`` (N, groups)), as the
+reference's stacked pytree does; ``final_params`` is not stacked and
+stays empty.  The readers refuse a stacked report rather than reduce
+over its points: :meth:`ExecutionReport.point` gives point j's report.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import dataclasses
 import torch
 
 #: report fields (all dicts: label -> scalar or per-group tensor).
-_FIELDS = ("exchange_overflow", "exchange_demand", "exchange_capacity",
+FIELDS = ("exchange_overflow", "exchange_demand", "exchange_capacity",
            "group_overflow", "tail_mass", "state_nan", "waves")
 #: the fields read back as counts; tail_mass is read as its maximum.
 _COUNTS = ("exchange_overflow", "exchange_demand", "exchange_capacity",
@@ -60,11 +67,29 @@ class ExecutionReport:
     #: "shuffle_bucket_floor", "stream_wave_chunks", "kappa_scale",
     #: "groups_scale"}).
     final_params: dict = dataclasses.field(default_factory=dict)
+    #: a sweep's stacked report: the number of points (every value has a
+    #: leading axis of that length); None for the report of one run
+    points: int | None = None
+
+    def point(self, j: int) -> "ExecutionReport":
+        """Point j's report of a stacked sweep report (each value's index
+        j), which the readers below take."""
+        if self.points is None:
+            raise ValueError("point() reads a stacked sweep report; this "
+                             "is the report of one run")
+        return ExecutionReport(**{f: {k: v[j] for k, v in
+                                      getattr(self, f).items()}
+                                  for f in FIELDS})
 
     def host_values(self) -> dict:
         """Every device value on the host, in one device->host copy:
         {field: {label: int}} for the counts and {"tail_mass": {label:
         max per-group mass as a float}}."""
+        if self.points is not None:
+            raise ValueError(
+                f"a stacked sweep report holds {self.points} points' "
+                "diagnostics; read one point's with report.point(j) "
+                "instead of reducing over the points")
         keys, vals = [], []
         for f in _COUNTS + ("tail_mass",):
             for k, v in getattr(self, f).items():
@@ -191,9 +216,19 @@ class ReportBuilder:
     execution order, so a plan's report labels are the same on every run
     (and the same as the JAX package's)."""
 
-    def __init__(self):
+    def __init__(self, points: int | None = None):
         self._counters: dict = {}
-        self._report = ExecutionReport()
+        self._points = points
+        self._report = ExecutionReport(points=points)
+
+    def _per_point(self, x, dtype=torch.int32):
+        """A count of a batched sweep's run at every point: a 0-d count
+        (a part of the plan the points share) repeated, an (N,) count
+        kept."""
+        x = torch.as_tensor(x).to(dtype)
+        if self._points is None or x.dim() == 1:
+            return x
+        return x.expand(self._points).contiguous()
 
     def _next(self, kind: str) -> str:
         i = self._counters.get(kind, 0)
@@ -209,27 +244,28 @@ class ReportBuilder:
     def exchange_leg(self, label: str, leg: str, overflow, demand,
                      capacity: int) -> None:
         key = f"{label}.{leg}"
-        self._report.exchange_overflow[key] = torch.as_tensor(
-            overflow).to(torch.int32)
-        self._report.exchange_demand[key] = torch.as_tensor(
-            demand).to(torch.int32)
-        self._report.exchange_capacity[key] = torch.as_tensor(
-            capacity, dtype=torch.int32)
+        self._report.exchange_overflow[key] = self._per_point(overflow)
+        self._report.exchange_demand[key] = self._per_point(demand)
+        self._report.exchange_capacity[key] = self._per_point(
+            torch.tensor(capacity))
 
     # ---------------------------------------------- aggregation passes
     def begin_agg(self, kind: str) -> str:
         return self._next(f"agg:{kind}")
 
     def group_overflow(self, label: str, count) -> None:
-        self._report.group_overflow[label] = torch.as_tensor(
-            count, dtype=torch.int32)
+        self._report.group_overflow[label] = self._per_point(count)
 
-    def tail(self, name: str, per_group) -> None:
+    def tail(self, name: str, per_group, per_point: bool = False) -> None:
+        """``per_group``: (groups,), or with ``per_point`` a batched
+        sweep's (N, groups)."""
+        if self._points is not None and not per_point:
+            per_group = per_group.expand(
+                (self._points,) + tuple(per_group.shape)).contiguous()
         self._report.tail_mass[name] = per_group
 
     def state_nan(self, name: str, count) -> None:
-        self._report.state_nan[name] = torch.as_tensor(count,
-                                                       dtype=torch.int32)
+        self._report.state_nan[name] = self._per_point(count)
 
     # ------------------------------------------------------- streaming
     def set_waves(self, completed: int, total: int, retries: int) -> None:
@@ -241,13 +277,13 @@ class ReportBuilder:
         """A child builder whose label counters CONTINUE from this one,
         for a plan part collected apart; :meth:`absorb` merges its report
         back."""
-        child = ReportBuilder()
+        child = ReportBuilder(self._points)
         child._counters = dict(self._counters)
         return child
 
     def absorb(self, report: ExecutionReport) -> None:
         """Merge a report produced by a forked builder."""
-        for f in _FIELDS:
+        for f in FIELDS:
             getattr(self._report, f).update(getattr(report, f))
 
     def build(self) -> ExecutionReport:

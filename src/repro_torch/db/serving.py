@@ -51,7 +51,7 @@ from . import physical as phys
 from . import sweep as S
 from .plans import (LRUCache, Node, Placement, Scan, compile_plan,
                     mesh_fingerprint, plan_key, plan_params, run_plan)
-from .report import ServingStats
+from .report import FIELDS, ExecutionReport, ServingStats
 from .table import Table
 
 
@@ -177,9 +177,18 @@ class PlanCache:
 
 def _tree_join(trees: list, join=torch.stack):
     """Join equal-structured results (dicts, tuples, NamedTuples, Tables
-    of tensors) leaf by leaf: stacked along a new leading axis, or with
-    ``join=torch.cat`` concatenated along the leading one."""
+    of tensors, ExecutionReports) leaf by leaf: stacked along a new
+    leading axis, or with ``join=torch.cat`` concatenated along the
+    leading one.  Reports join field by field into a stacked report (its
+    ``points`` set); ``final_params`` is not a leaf, as in the reference's
+    report pytree, and stays empty."""
     first = trees[0]
+    if isinstance(first, ExecutionReport):
+        points = len(trees) if join is torch.stack \
+            else sum(t.points for t in trees)
+        return ExecutionReport(**{f: _tree_join([getattr(t, f)
+                                                 for t in trees], join)
+                                  for f in FIELDS}, points=points)
     if isinstance(first, Table):
         return Table({k: join([t.columns[k] for t in trees])
                       for k in first.columns},
@@ -296,13 +305,21 @@ class QueryService:
         batched passes of at most ``batch_row_budget`` rows
         (``info["chunk"]`` points each, ``info["launches"]`` of them),
         within a tolerance of the scan sweep (on a mesh, mesh=None's vmap
-        bits); a plan family the point join cannot batch is refused with a
-        ``ValueError`` naming the construct
-        (:func:`repro_torch.db.sweep.check_plan`), as is a vmap sweep with
-        ``with_report`` or through the co-partitioned pipeline.  Every
-        further sweep of the family,
-        of any size, is a cache hit.  ``info`` holds ``hit``, ``points``
-        and ``seconds``.
+        bits, through any exchange the lowering picks, the co-partitioned
+        pipeline included).  Parameters may sit on either side of a join
+        (TPC-H Q3's SEGMENT on ``customer``, DATE on ``orders`` and
+        ``lineitem``).  With ``with_report=True`` either mode returns
+        ``(result, report)``: a stacked :class:`~repro_torch.db.report.
+        ExecutionReport` whose every value gains the leading N axis too
+        (``report.point(j)`` is point j's; a scan sweep's is bit-equal to
+        the submit's report at that point, a vmap sweep's counts equal
+        it).  Refused, as by the reference: a streamed plan
+        (``device_row_budget``: ``NotImplementedError``) and, under
+        ``"vmap"``, a :class:`~repro_torch.db.plans.Param` outside a
+        Select predicate, a Map column or a ReweightGreater threshold
+        (``ValueError`` naming the construct, :func:`repro_torch.db.sweep.
+        check_plan`).  Every further sweep of the family, of any size, is
+        a cache hit.  ``info`` holds ``hit``, ``points`` and ``seconds``.
         """
         merged = self._merged(opts)
         if merged.get("device_row_budget") is not None:

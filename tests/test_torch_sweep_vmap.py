@@ -20,7 +20,14 @@ by ``batch_row_budget`` is held to the one-launch sweep likewise.  The
 
 On a mesh (two gloo ranks, spawned once: a 2-rank data axis and a
 (1, 2) data x model mesh) the vmap sweep equals mesh=None's bit for bit,
-as every plan does.
+as every plan does, through every exchange the lowering can pick: the
+gathered and the shuffled join, a swept build side, the co-partitioned
+pipeline (CoPartitionedJoin + PartitionedAgg, forced with
+``copartition=True`` and a small join budget) and a Repartition into a
+PartitionedAgg (``agg_shuffle_budget``).  Where a small
+``shuffle_slack`` makes some points overflow their buckets, each point's
+report counts equal the scan sweep's on the same mesh, and only those
+points are NaN-poisoned.
 
 Sizes: n_orders=600 (2,400 lineitem rows), 4-8 points.  The JAX package
 is imported inside functions only: the mesh ranks import this module."""
@@ -141,6 +148,44 @@ def _q6_exact_family(P):
                       num_freq=512)
 
 
+def _q3_family(P, order_join_budget=None):
+    """TPC-H Q3 with its substitution parameters lifted: SEGMENT on
+    ``customer`` (the build side of ``orders``' join) and DATE on
+    ``orders`` (the build side of ``lineitem``'s join) and on
+    ``lineitem``."""
+    cust = P.Select(P.Scan("customer"), P.Parameterized(
+        lambda t, seg: t["c_mktsegment"] == seg, ("segment",)))
+    orders = P.Select(P.Scan("orders"), P.Parameterized(
+        lambda t, day: t["o_orderdate"] < day, ("date",)))
+    o = P.FKJoin(orders, cust, "o_custkey", "c_custkey", ("c_mktsegment",))
+    li = P.Select(P.Scan("lineitem"), P.Parameterized(
+        lambda t, day: t["l_shipdate"] > day, ("date",)))
+    j = P.FKJoin(li, o, "l_orderkey", "o_orderkey",
+                 ("o_orderdate", "o_custkey"),
+                 gather_budget=order_join_budget)
+    return P.GroupAgg(j, ("l_orderkey",), "l_extendedprice", "SUM", 512,
+                      "normal", extra=(("cumulants", "l_extendedprice",
+                                        "SUM", "cumulants"),))
+
+
+def _build_side_family(P):
+    """A parameter on a join's build side only: lineitem's quantity under
+    the orders of a date window (one group a point)."""
+    orders = P.Select(P.Scan("orders"), P.Parameterized(
+        lambda t, day: t["o_orderdate"] < day, ("date",)))
+    j = P.FKJoin(P.Scan("lineitem"), orders, "l_orderkey", "o_orderkey",
+                 ("o_custkey",))
+    return P.GroupAgg(j, (), "l_quantity", "SUM", 1)
+
+
+def _max_family(P):
+    """MAX (MinMax runs and a truncation tail at kappa 8) a point."""
+    sel = P.Select(P.Scan("lineitem"), P.Parameterized(
+        lambda t, lim: t["l_quantity"] < lim, ("qty_lim",)))
+    return P.GroupAgg(sel, ("l_returnflag",), "l_quantity", "MAX", 4,
+                      kappa=8)
+
+
 def _families(P, mod, lib, n, **kw):
     """name -> (family, batch) for either package (``P`` its plans
     module, ``mod`` its tpch, ``lib`` jnp or torch)."""
@@ -157,6 +202,11 @@ def _families(P, mod, lib, n, **kw):
         "q6_exact": (_q6_exact_family(P),
                      dict(disc_lo=lib.floor(ar(4.0, 6.0)),
                           qty_lim=lib.floor(ar(4.0, 9.0)))),
+        "q3": (_q3_family(P), dict(segment=lib.floor(ar(0.0, 4.99)),
+                                   date=lib.floor(ar(9400.0, 8800.0)))),
+        "build_side": (_build_side_family(P),
+                       dict(date=lib.floor(ar(8500.0, 9800.0)))),
+        "max": (_max_family(P), dict(qty_lim=lib.floor(ar(5.0, 45.0)))),
     }
 
 
@@ -170,8 +220,6 @@ def _port_only(n, dtype):
     qty_lt = Parameterized(lambda t, lim: t["l_quantity"] < lim,
                            ("qty_lim",))
     sel = Select(Scan("lineitem"), qty_lt)
-    fam["max"] = (GroupAgg(sel, ("l_returnflag",), "l_quantity", "MAX", 4,
-                           kappa=8), dict(qty_lim=lim))
     fam["overflow"] = (GroupAgg(sel, ("l_orderkey",), "l_quantity", "SUM",
                                 16), dict(qty_lim=lim))
     fam["rows"] = (Map(sel, "scaled", Parameterized(
@@ -186,7 +234,7 @@ def _port_only(n, dtype):
     return fam
 
 
-FAMILIES = ("q6", "q1", "q18", "q6_exact")
+FAMILIES = ("q6", "q1", "q18", "q6_exact", "q3", "build_side", "max")
 
 
 # ------------------------------------------------- against the reference
@@ -212,7 +260,7 @@ def test_vmap_matches_reference_vmap(jax_db, arrays, family):
 # ---------------------------------------------- against the scan sweep
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("family", FAMILIES + ("max", "overflow", "rows",
+@pytest.mark.parametrize("family", FAMILIES + ("overflow", "rows",
                                                "project", "reweight"))
 def test_vmap_matches_scan(arrays, family, dtype):
     """8 points: vmap against the port's scan sweep (which is bit-equal to
@@ -280,10 +328,6 @@ def _refused():
         "groupagg_kappa": (
             GroupAgg(li, ("l_returnflag",), "l_quantity", "MAX", 4,
                      kappa=Param("kappa")), "GroupAgg.kappa"),
-        "fkjoin_build_side": (
-            GroupAgg(FKJoin(Scan("orders"), li, "o_orderkey",
-                            "l_orderkey", ("l_quantity",)), (),
-                     "l_quantity", "SUM", 1), "FKJoin on o_orderkey"),
     }
 
 
@@ -308,15 +352,24 @@ def test_vmap_keeps_the_reference_refusals(arrays):
         svc.sweep(fam, {**good, "qty_lim": torch.ones(3)})
     with pytest.raises(NotImplementedError, match="device_row_budget"):
         svc.sweep(fam, good, device_row_budget=64)
-    with pytest.raises(ValueError, match="with_report"):
-        svc.sweep(fam, good, with_report=True)
     with pytest.raises(ValueError, match="sweep_mode"):
         QueryService({}, sweep_mode="loop")
 
 
 # --------------------------------------------------------------- mesh
+#: case -> (family, compile options); every family of ``_port_only``
+MESH_OPTS = {"shuffle": ("project", dict(join_gather_budget=4)),
+             "q3_shuffle": ("q3", dict(join_gather_budget=4)),
+             "q3_copart": ("q3_copart", dict(copartition=True)),
+             "repartition": ("reweight", dict(agg_shuffle_budget=4))}
 MESH_CASES = ("q6", "q1", "q18", "q6_exact", "max", "overflow", "rows",
-              "project", "shuffle")
+              "project", "shuffle", "q3", "build_side", "q3_shuffle",
+              "q3_copart", "repartition")
+#: the pipelines each forced case must lower to (``compiled.explain``)
+PIPELINES = {"q3_copart": ("CoPartitionedJoin", "PartitionedAgg"),
+             "repartition": ("Repartition", "PartitionedAgg")}
+#: a small shuffle_slack: the points that select more rows overflow
+SLACK = 0.5
 
 
 def _bit_equal(a, b) -> bool:
@@ -326,37 +379,75 @@ def _bit_equal(a, b) -> bool:
         and torch.equal(x, fb[k]) for k, x in fa.items())
 
 
+def _keyed_join_family(by: str):
+    """A join on a key computed en route (a Map), whose exchange buckets
+    are therefore sized by ``shuffle_slack``; ``by="okey"`` groups on the
+    join key (the co-partitioned pipeline with ``copartition=True``),
+    ``by="o_custkey"`` on a build column (ShuffleJoin + PartialAgg)."""
+    sel = Select(Scan("lineitem"), Parameterized(
+        lambda t, lim: t["l_quantity"] < lim, ("qty_lim",)))
+    keyed = Map(sel, "okey", lambda t: t["l_orderkey"])
+    j = FKJoin(keyed, Scan("orders"), "okey", "o_orderkey", ("o_custkey",),
+               gather_budget=4)
+    return GroupAgg(j, (by,), "l_quantity", "SUM", 1024)
+
+
+def _report(rep) -> dict:
+    return {f: getattr(rep, f) for f in ("exchange_overflow",
+                                         "exchange_demand",
+                                         "exchange_capacity",
+                                         "group_overflow", "tail_mass",
+                                         "state_nan")}
+
+
 def _mesh_vmap(arrays):
     """One gloo rank: every case's vmap sweep on a 2-rank data mesh and on
     a (1, 2) data x model mesh against mesh=None's vmap sweep (computed
     here), bit for bit ("shuffle": the Project family with its join forced
-    onto ShuffleJoin); the co-partitioned pipeline refused."""
+    onto ShuffleJoin; "q3_copart": Q3 through the co-partitioned
+    pipeline; "repartition": the reweight family through a Repartition).
+    Then, on the data mesh, the vmap and scan sweeps with reports of
+    "q3_copart" and of the two ``_keyed_join_family`` plans at
+    ``SLACK``."""
     from repro_torch.launch.mesh import make_mesh
     tables = _tables(arrays)
     meshes = {"data": make_mesh((2,), ("data",), device="cpu"),
               "model": make_mesh((1, 2), ("data", "model"), device="cpu")}
     fams = _port_only(4, torch.float64)
-    fams["shuffle"] = fams["project"]
+    fams["q3_copart"] = (_q3_family(TP, order_join_budget=4),
+                         fams["q3"][1])
     out = {}
     for name in MESH_CASES:
-        fam, batch = fams[name]
-        opts = dict(join_gather_budget=4) if name == "shuffle" else {}
+        fam_name, opts = MESH_OPTS.get(name, (name, {}))
+        fam, batch = fams[fam_name]
         ref, _ = QueryService(tables, sweep_mode="vmap", **CPU,
                               **opts).sweep(fam, batch)
         for axes, mesh in meshes.items():
             got, _ = QueryService(tables, mesh, sweep_mode="vmap", **CPU,
                                   **opts).sweep(fam, batch)
             out[f"{name}/{axes}"] = _bit_equal(got, ref)
-    fam, batch = fams["overflow"]
-    copart = GroupAgg(FKJoin(fam.child, Scan("orders"), "l_orderkey",
-                             "o_orderkey", ("o_custkey",)),
-                      ("l_orderkey",), "l_quantity", "SUM", 1024)
-    try:
-        QueryService(tables, meshes["data"], sweep_mode="vmap",
-                     copartition=True, join_gather_budget=4,
-                     **CPU).sweep(copart, batch)
-    except ValueError as e:
-        out["copartition"] = str(e)
+        if name in PIPELINES:
+            out[f"{name}/explain"] = TP.compile_plan(
+                fam, meshes["data"], **CPU, **opts).explain(tables)
+    lim = dict(qty_lim=torch.floor(torch.linspace(5.0, 45.0, 8,
+                                                  dtype=torch.float64)))
+    reported = {"q3_copart": (fams["q3_copart"][0], fams["q3"][1],
+                              dict(copartition=True)),
+                "overflow_copart": (_keyed_join_family("okey"), lim,
+                                    dict(copartition=True,
+                                         shuffle_slack=SLACK)),
+                "overflow_shuffle": (_keyed_join_family("o_custkey"), lim,
+                                     dict(shuffle_slack=SLACK))}
+    for name, (fam, batch, opts) in reported.items():
+        runs = {}
+        for mode in ("vmap", "scan"):
+            (res, rep), _ = QueryService(
+                tables, meshes["data"], sweep_mode=mode, **CPU,
+                **opts).sweep(fam, batch, with_report=True)
+            runs[mode] = (res, _report(rep), rep.points)
+        out[f"{name}/report"] = runs
+        out[f"{name}/explain"] = TP.compile_plan(
+            fam, meshes["data"], **CPU, **opts).explain(tables)
     return out
 
 
@@ -376,29 +467,67 @@ def test_vmap_on_a_mesh_bit_equal(mesh_ranks, case):
 
 
 @pytest.mark.multidevice
-def test_vmap_refuses_the_copartitioned_pipeline(mesh_ranks):
+@pytest.mark.parametrize("case", sorted(PIPELINES))
+def test_vmap_runs_the_copartitioned_pipeline(mesh_ranks, case):
+    """The forced pipelines are in the plan the bit-equal sweeps ran."""
     for r in mesh_ranks:
-        assert "CoPartitionedJoin" in r["copartition"]
+        assert all(node in r[f"{case}/explain"] for node in PIPELINES[case])
+
+
+def _overflowed(rep: dict) -> np.ndarray:
+    return sum(np.asarray(v) for v in rep["exchange_overflow"].values())
+
+
+@pytest.mark.multidevice
+@pytest.mark.parametrize("case", ("q3_copart", "overflow_copart",
+                                  "overflow_shuffle"))
+def test_vmap_report_on_a_mesh_equals_scan(mesh_ranks, case):
+    """On the data mesh, the vmap sweep's report holds each point's
+    counts, equal to the scan sweep's; the results agree within
+    ``VMAP_RTOL``.  At ``SLACK`` some points overflow their buckets and
+    some do not: exactly the overflowing points are NaN-poisoned, as in
+    the scan sweep (a point's rows were held to one point's bucket)."""
+    for r in mesh_ranks:
+        runs = r[f"{case}/report"]
+        (vres, vrep, vpts), (sres, srep, spts) = runs["vmap"], runs["scan"]
+        assert vpts == spts
+        _close(vrep, srep, VMAP_RTOL)
+        _close(vres, sres, VMAP_RTOL)
+        over = _overflowed(vrep)
+        explain = r[f"{case}/explain"]
+        if case == "q3_copart":
+            assert not over.any()
+            assert "CoPartitionedJoin" in explain
+            continue
+        assert over.any() and not over.all(), over
+        node = "CoPartitionedJoin" if case == "overflow_copart" \
+            else "ShuffleJoin"
+        assert node in explain
+        poisoned = torch.isnan(vres["sum"][0]).reshape(8, -1).any(1)
+        np.testing.assert_array_equal(poisoned.numpy(), over > 0)
 
 
 # --------------------------------------------------------------- card
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ("q6", "q1", "q6_exact"))
+@pytest.mark.parametrize("family", ("q6", "q1", "q6_exact", "q3"))
 def test_vmap_on_the_card_runs_the_grouped_kernels(family):
     """On the card, float32 at n_orders=20,000 (10,000 rows a canonical
     chunk): the vmap sweep launches the grouped kernels
     (``group_cumulant_sums``; ``group_logcf`` for the exact rider) and
     agrees with the scan sweep within ``CARD_RTOL_F32`` (cumulant orders
-    ``CUMULANT_RTOL_F32``)."""
+    ``CUMULANT_RTOL_F32``), both with reports whose counts are equal
+    ("q3": parameters on both build sides)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from repro_torch.kernels import ops
     tables = tpch.generate(n_orders=20000, device="cuda").tables()
     fam, batch = _families(TP, tpch, torch, 8, dtype=torch.float32,
                            device="cuda")[family]
-    scan, _ = QueryService(tables).sweep(fam, batch)
+    scan, srep = QueryService(tables).sweep(fam, batch,
+                                            with_report=True)[0]
     ops.reset_launches()
-    vmap, _ = QueryService(tables, sweep_mode="vmap").sweep(fam, batch)
+    vmap, vrep = QueryService(tables, sweep_mode="vmap").sweep(
+        fam, batch, with_report=True)[0]
     torch.cuda.synchronize()
     launched = ops.launches()
     # q6_exact carries the exact rider and no cumulant one
@@ -406,3 +535,4 @@ def test_vmap_on_the_card_runs_the_grouped_kernels(family):
     assert (launched["group_logcf"] > 0) == (family == "q6_exact")
     cpu = lambda x: {k: v.cpu() for k, v in _flat(x).items()}
     _close(cpu(vmap), cpu(scan), CARD_RTOL_F32, CUMULANT_RTOL_F32)
+    _close(cpu(_report(vrep)), cpu(_report(srep)), CARD_RTOL_F32)
